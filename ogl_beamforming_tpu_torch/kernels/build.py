@@ -1,0 +1,117 @@
+"""Build the CUDA kernels of ``csrc/`` and load them with ctypes.
+
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into one shared
+library with a plain C interface; nothing includes PyTorch's headers, so a
+build takes seconds.  The library goes into ``_build/`` beside this package,
+named by a hash of the sources and flags, and is built at first use: the
+first call of a kernel wrapper (or :func:`library`) compiles it.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C signatures of the entry points (csrc/*.cu): pointers and the stream are
+# void*, so ctypes passes them at full width.
+SIGNATURES = {
+    # rf, h (int8 A x A), out, C, A, S, scale, stream
+    "decode_int16": [_P, _P, _P, _I, _I, _I, _F, _P],
+    "decode_f32": [_P, _P, _P, _I, _I, _I, _F, _P],
+    # rf, scalars, tx_pos, tx_weight, tx_row, out, inco,
+    # channels, channel_count, rf_rows, samples, n_tx,
+    # nx, ny, nz, gnx, gny, gnz, mode, iq, coherency, stream
+    "das_forces": [_P, _P, _P, _P, _P, _P, _P,
+                   _I, _I, _I, _I, _I,
+                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+}
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or the build failed (message carries its output)."""
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        candidate = Path(home) / "bin" / "nvcc"
+        if candidate.is_file():
+            nvcc = str(candidate)
+    if nvcc is None:
+        raise KernelBuildError(
+            "nvcc not found (neither on PATH nor under $CUDA_HOME/bin): the "
+            "CUDA kernels of ogl_beamforming_tpu_torch cannot be built")
+    return nvcc
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libogl_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources if their library is not built yet; return its
+    path.  The compiler's report (``-Xptxas -v``) is kept beside it as
+    ``.log``."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise KernelBuildError(
+            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    out.with_suffix(".log").write_text(log)
+    os.replace(tmp, out)         # atomic: concurrent builders agree
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(name: str, code: int) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {code}")
