@@ -2,32 +2,42 @@
 
 The same beamforming pipeline as the JAX package, written in PyTorch for an
 NVIDIA Hopper GPU: plain torch for planning and glue, and hand-written CUDA
-kernels (``csrc/``, built at first use by ``kernels/build.py``) for the two
-stages of the main path, Hadamard decode and FORCES delay-and-sum.  Every
-kernel has a plain-torch twin beside it; a CPU tensor takes the twin, a CUDA
-tensor takes the kernel or raises.
+kernels (``csrc/``, built at first use by ``kernels/build.py``) for the
+stages of the ported paths: demodulation and FIR filtering, Hadamard decode,
+and FORCES- and RCA-family delay-and-sum.  Every kernel has a plain-torch
+twin beside it; a CPU tensor takes the twin, a CUDA tensor takes the kernel
+or raises.
 
-The JAX-free modules of ``ogl_beamforming_tpu`` (parameter schema, host DSP,
-the NumPy golden oracle, presets, host RF preparation) are reused by import.
-This package never imports jax.
+The package imports nothing of ``ogl_beamforming_tpu`` and never imports
+jax.  The jax-free modules it needs are its own copies, at the same relative
+paths and kept equal to the originals by ``tests/test_torch_pipeline.py``:
+``params/{constants,enums,types}``, ``utils/{hadamard,transforms,filters}``,
+``pipeline/{spec,stats}``, ``runtime/upload``, ``models/presets`` and the
+NumPy golden oracle ``ops/golden``.
 
 Layout:
-  utils/     device helpers (resolve_device, sync, to_host)
+  params/    parameter schema (copies)
+  utils/     device helpers; host DSP (copies)
   kernels/   nvcc build of csrc/*.cu into a ctypes-loaded library
   csrc/      CUDA C++ kernels for sm_90a
-  ops/       decode, DAS (plain twins + kernel dispatch), coherency
+  ops/       filtering, decode, DAS (plain twins + kernel dispatch),
+             coherency; golden (copy)
   pipeline/  plan builder and the Beamformer executor
-  convert.py JAX plan parameters -> this package's tensors
+  runtime/   host RF preparation (copy)
+  models/    presets (copy)
+  convert.py the JAX package's parameters and plan parameters -> this
+             package's
 """
 
 import torch
 
-from ogl_beamforming_tpu.params.constants import API_VERSION  # noqa: F401
-from ogl_beamforming_tpu.params.enums import (  # noqa: F401
+from .params.constants import API_VERSION  # noqa: F401
+from .params.enums import (  # noqa: F401
     AcquisitionKind, BeamformerError, DataKind, DecodeMode, ErrorKind,
     FilterKind, InterpolationMode, RCAOrientation, ShaderKind)
-from ogl_beamforming_tpu.params.types import (  # noqa: F401
-    FilterParameters, Parameters, SimpleParameters)
+from .params.types import (  # noqa: F401
+    FilterParameters, KaiserFilterParameters, MatchedChirpFilterParameters,
+    Parameters, SimpleParameters)
 
 __version__ = "0.1.0"
 

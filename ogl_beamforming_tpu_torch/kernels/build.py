@@ -1,6 +1,7 @@
 """Build the CUDA kernels of ``csrc/`` and load them with ctypes.
 
-``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into one shared
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``), one process
+per source, all started together, and links the objects into one shared
 library with a plain C interface; nothing includes PyTorch's headers, so a
 build takes seconds.  The library goes into ``_build/`` beside this package,
 named by a hash of the sources and flags, and is built at first use: the
@@ -8,10 +9,13 @@ first call of a kernel wrapper (or :func:`library`) compiles it.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
+Each kernel wrapper adds one to its entry of :data:`LAUNCHES` where it
+launches its kernel, and nowhere else (the plain twins do not count).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -25,7 +29,11 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+LAUNCHES: collections.Counter = collections.Counter()
+"""Kernel launches in this process by kernel name: ``decode_hadamard``,
+``das_forces``, ``das_rca``, ``demodulate``, ``fir``."""
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +51,18 @@ SIGNATURES = {
     "das_forces": [_P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I,
                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # rf, scalars, acquisition table (A x 8), out, inco,
+    # channels, rf_rows, acquisitions, samples,
+    # nx, ny, nz, gnx, gny, gnz, mode, iq, coherency, stream
+    "das_rca": [_P, _P, _P, _P, _P,
+                _I, _I, _I, _I,
+                _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, omega (device float), taps (re | im), out,
+    # rows, S_in, n_out, L, D, int16 input, complex taps, scale, stream
+    "demodulate": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # x, taps (re | im), out,
+    # rows, S, n_out, L, D, complex input, complex taps, stream
+    "fir": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -86,14 +106,39 @@ def build() -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    tag = f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((obj, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log = ""
+    failed = None
+    for obj, cmd, proc in jobs:
+        text = proc.communicate()[0]
+        log += text
+        if proc.returncode != 0 and failed is None:
+            failed = (proc.returncode, cmd, text)
+    objs = [obj for obj, _, _ in jobs]
+    try:
+        if failed is not None:
+            code, cmd, text = failed
+            raise KernelBuildError(
+                f"nvcc failed (exit {code}):\n{' '.join(cmd)}\n{text}")
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp),
+               *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise KernelBuildError(
+                f"nvcc link failed (exit {proc.returncode}):\n"
+                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)         # atomic: concurrent builders agree
     return out

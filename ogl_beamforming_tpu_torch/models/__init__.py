@@ -1,0 +1,2 @@
+"""Model presets."""
+from . import presets  # noqa: F401

@@ -5,14 +5,15 @@ JAX package's exact-f32 XLA path (``ops/das.py``); :func:`das` dispatches on
 the RF tensor's device: a CPU tensor takes the twin, a CUDA tensor takes the
 hand-written kernel (``ops/das_cuda.py`` -> ``csrc/das.cu``) or raises.
 
-Ported families: FORCES, UFORCES (sparse) and READI-grouped FORCES, in every
-interpolation mode, real and IQ, with or without the coherency output.
-HERCULES and RCA raise ``NotImplementedError`` (queued in ROADMAP.md), as do
-frame batches.
+Ported families: FORCES, UFORCES (sparse) and READI-grouped FORCES, and the
+RCA family (Flash, RCA_TPW, RCA_VLS: per-acquisition orientation and focal
+vector, plane or cylindrical transmit), in every interpolation mode, real
+and IQ, with or without the coherency output.  HERCULES raises
+``NotImplementedError`` (queued in ROADMAP.md), as do frame batches.
 
-Constants that the JAX code multiplies in (pi, 2*pi) are the float32 values
-JAX would use, so the twin's arithmetic is the JAX package's, operation for
-operation.
+Constants that the JAX code multiplies in (pi, 2*pi, pi/180) are the
+float32 values JAX would use, so the twin's arithmetic is the JAX package's,
+operation for operation.
 """
 
 from __future__ import annotations
@@ -22,11 +23,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..params.enums import AcquisitionKind, InterpolationMode, RCAOrientation
 from .golden import DasParams
-from ogl_beamforming_tpu.params.enums import AcquisitionKind, InterpolationMode
 
 PI_F32 = float(np.float32(np.pi))
 TWO_PI_F32 = float(np.float32(2.0 * np.pi))
+DEG_F32 = float(np.float32(np.pi / 180))      # jnp.radians' constant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +56,7 @@ class DasStatic:
         return self.acquisition_kind.das_family
 
 
-def make_dynamic(p: DasParams, device="cpu") -> dict:
+def make_dynamic(p: DasParams, device) -> dict:
     """The dynamic-parameter dict of tensors on ``device`` (same keys and
     values as the JAX package's ``make_dynamic``)."""
     a = p.acquisition_count
@@ -119,7 +121,7 @@ def check_supported(st: DasStatic) -> None:
     if st.frame_batch > 1:
         raise NotImplementedError(
             "DAS frame batches are not ported yet; see ROADMAP.md")
-    if st.family not in ("forces", "none"):
+    if st.family not in ("forces", "rca", "none"):
         raise NotImplementedError(
             f"DAS family {st.family!r} ({st.acquisition_kind.name}) is not "
             "ported yet; see ROADMAP.md")
@@ -292,6 +294,95 @@ def _forces_block(st: DasStatic, dyn, rf, world):
     return out, inco
 
 
+# ---------------------------------------------------------------------------
+# RCA: Flash / TPW / VLS (das.glsl:202-229)
+# ---------------------------------------------------------------------------
+
+def rca_tables(dyn) -> torch.Tensor:
+    """Per-acquisition transmit table (A, 8) float32 of an RCA frame, shared
+    by the plain twin and the CUDA kernel (``csrc/das.cu``'s ``RcaColumn``):
+    tx orientation, rx orientation, sin and cos of the steering angle, focal
+    point (lateral, z), plane-wave flag (infinite focal depth), pad.  The
+    angle goes through ``radians``, ``sin`` and ``cos`` once per
+    acquisition, in float32 (the JAX package's
+    ``_rca_transmit_distance``)."""
+    orient = dyn["orientations"].to(torch.int32)
+    fv = dyn["focal_vectors"].to(torch.float32)
+    angle = fv[:, 0] * DEG_F32
+    sin_a, cos_a = torch.sin(angle), torch.cos(angle)
+    depth = fv[:, 1]
+    plane = torch.isinf(depth)
+    safe_depth = torch.where(plane, 0.0, depth)
+    cols = [((orient >> 4) & 0xF).to(torch.float32),
+            (orient & 0xF).to(torch.float32), sin_a, cos_a,
+            safe_depth * sin_a, safe_depth * cos_a, plane.to(torch.float32),
+            torch.zeros_like(angle)]
+    return torch.stack(cols, dim=-1).contiguous()
+
+
+def _rca_transmit_distance(world, tab) -> torch.Tensor:
+    """Plane or cylindrical transmit distance of one acquisition for the
+    voxels ``world`` (V, 3) (das.glsl:158-200); selects, as the JAX
+    package's traced orientation."""
+    tx_o, sin_a, cos_a, f_lat, f_z, plane = (tab[0], tab[2], tab[3], tab[4],
+                                            tab[5], tab[6])
+    lat = torch.where(tx_o == float(RCAOrientation.Rows), world[:, 1],
+                      world[:, 0])
+    z = world[:, 2]
+    plane_d = lat * sin_a + z * cos_a
+    d_lat = lat - f_lat
+    d_z = z - f_z
+    cyl = torch.sqrt(d_lat * d_lat + d_z * d_z)
+    dist = torch.where(plane > 0.5, plane_d, cyl)
+    return torch.where(tx_o == float(RCAOrientation.NoOrientation), 0.0,
+                       dist)
+
+
+def _rca_block(st: DasStatic, dyn, rf, world):
+    """All acquisitions x channels of an RCA frame for the voxels ``world``
+    (V, 3) in world space; the receive geometry works in XDC space.  Each
+    acquisition's channel sum is taken in channel order and then added to
+    the frame, as the CUDA kernel does."""
+    xdc = _apply_m4(dyn["xdc_transform"], world)
+    px = dyn["xdc_element_pitch"][0]
+    py = dyn["xdc_element_pitch"][1]
+    chans = _channels(dyn, rf.shape[0])
+    tabs = rca_tables(dyn)
+    v = world.shape[0]
+    dtype = torch.complex64 if st.iq else torch.float32
+    out = torch.zeros(v, dtype=dtype, device=world.device)
+    inco = torch.zeros(v, dtype=torch.float32, device=world.device)
+    z = xdc[:, 2]
+    abs_z = torch.abs(z)
+    z2 = z * z
+    for a in range(st.acquisition_count):
+        tab = tabs[a]
+        rx_rows = tab[1] == float(RCAOrientation.Rows)
+        lat = torch.where(rx_rows, xdc[:, 1], xdc[:, 0])
+        rx_lat = torch.where(rx_rows, chans * py, chans * px)
+        tx_dist = _rca_transmit_distance(world, tab)
+        part = torch.zeros(v, dtype=dtype, device=world.device)
+        part_inco = torch.zeros(v, dtype=torch.float32, device=world.device)
+        for c in range(rf.shape[0]):
+            recv_lat = lat - rx_lat[c]
+            a_arg = torch.abs(dyn["f_number"] * recv_lat / abs_z)
+            mask = a_arg < 0.5
+            apod = _apodize(torch.where(mask, a_arg, 0.0))
+            rlen = torch.sqrt(recv_lat * recv_lat + z2)
+            index = _sample_index(dyn, tx_dist + rlen)
+            vals = _sample_rf(st, dyn, rf[c, a][None], index[None])[0]
+            vals = torch.where(mask, apod * vals, 0)
+            part = part + vals
+            if st.coherency_weighting:
+                part_inco = part_inco + torch.abs(vals)
+        out = out + part
+        inco = inco + part_inco
+    return out, inco
+
+
+_FAMILY_BLOCK = {"forces": _forces_block, "rca": _rca_block}
+
+
 def _zero_frame(st: DasStatic, device):
     nx, ny, nz = st.output_points
     zero = torch.zeros((nx, ny, nz), device=device,
@@ -309,7 +400,8 @@ def das_ref(rf: torch.Tensor, dyn: dict, st: DasStatic):
     if st.family == "none":
         # no das.glsl dispatch case for this kind: the frame stays zero
         return _zero_frame(st, rf.device)
-    out, inco = _forces_block(st, dyn, rf, _world_points(st, dyn))
+    block = _FAMILY_BLOCK[st.family]
+    out, inco = block(st, dyn, rf, _world_points(st, dyn))
     shape = st.output_points
     if st.coherency_weighting:
         return out.reshape(shape), inco.reshape(shape)

@@ -13,17 +13,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ogl_beamforming_tpu.utils.hadamard import hadamard as _hadamard_host
-
 from ..kernels import build
-
-LAUNCHES = 0
-"""Number of decode kernel launches in this process (the plain twin does not
-count)."""
+from ..utils.hadamard import hadamard as _hadamard_host
 
 
-def hadamard_matrix(order: int, device="cpu",
-                    dtype=torch.float32) -> torch.Tensor:
+def hadamard_matrix(order: int, device, dtype=torch.float32) -> torch.Tensor:
     """Hadamard matrix H (row-major, untransposed) on ``device``."""
     return torch.as_tensor(_hadamard_host(order), dtype=dtype, device=device)
 
@@ -52,7 +46,6 @@ def decode_hadamard_cuda(rf: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA decode kernel.  ``rf``: contiguous CUDA (C, A, S)
     int16, float32 or complex64; ``h``: (A, A) with entries +-1 (a Hadamard
     or Walsh matrix) on the same device."""
-    global LAUNCHES
     if not rf.is_cuda or h.device != rf.device:
         raise ValueError("decode_hadamard_cuda needs rf and h on one CUDA "
                          f"device, got {rf.device} and {h.device}")
@@ -82,7 +75,7 @@ def decode_hadamard_cuda(rf: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     code = getattr(lib, entry)(rf.data_ptr(), h8.data_ptr(), out.data_ptr(),
                                c, a, s, float(_inv_order(a)), stream)
     build.check(entry, code)
-    LAUNCHES += 1
+    build.LAUNCHES["decode_hadamard"] += 1
     if cplx:
         out = torch.view_as_complex(out.view(c, a, s // 2, 2))
     return out

@@ -17,24 +17,19 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ogl_beamforming_tpu.params.constants import (FILTER_SLOTS,
-                                                  MAX_CHANNEL_COUNT,
-                                                  MAX_EMISSIONS_COUNT,
-                                                  MAX_PARAMETER_BLOCKS)
-from ogl_beamforming_tpu.params.enums import (BeamformerError, ContrastMode,
-                                              ErrorKind, ViewPlaneTag)
-from ogl_beamforming_tpu.params.types import (FilterParameters,
-                                              LiveImagingParameters,
-                                              Parameters, SimpleParameters)
-from ogl_beamforming_tpu.pipeline.spec import (PipelineSpec, validate_block,
-                                               validate_parameters,
-                                               validate_pipeline)
-from ogl_beamforming_tpu.pipeline.stats import ComputeStats
-from ogl_beamforming_tpu.runtime.upload import prepare_rf
-from ogl_beamforming_tpu.utils.filters import Filter, make_filter
-
+from ..params.constants import (FILTER_SLOTS, MAX_CHANNEL_COUNT,
+                                MAX_EMISSIONS_COUNT, MAX_PARAMETER_BLOCKS)
+from ..params.enums import (BeamformerError, ContrastMode, ErrorKind,
+                            ViewPlaneTag)
+from ..params.types import (FilterParameters, LiveImagingParameters,
+                            Parameters, SimpleParameters)
+from ..runtime.upload import prepare_rf
 from ..utils.device import resolve_device, to_host
+from ..utils.filters import Filter, make_filter
 from .plan import CompiledPlan, build_plan
+from .spec import (PipelineSpec, validate_block, validate_parameters,
+                   validate_pipeline)
+from .stats import ComputeStats
 
 
 @dataclass
@@ -116,11 +111,12 @@ class Beamformer:
     Method names follow the client library's exported surface
     (lib/ogl_beamformer_lib_base.h:37-173) minus the ``beamformer_`` prefix;
     each ``*_at`` variant of the reference maps to the ``block=`` keyword.
-    ``device="cuda"`` runs the CUDA kernels and raises ``RuntimeError`` when
-    no GPU is available; it never falls back to the CPU.
+    It runs on the GPU (``device="cuda"``, the default) with the CUDA kernels
+    and raises ``RuntimeError`` when no GPU is available; it never falls
+    back to the CPU.  ``device="cpu"`` runs the plain twins.
     """
 
-    def __init__(self, device="cpu", backlog_bytes: int = 1 << 30):
+    def __init__(self, device="cuda", backlog_bytes: int = 1 << 30):
         self.device = resolve_device(device)
         self._blocks: list[ParameterBlock] = [ParameterBlock()]
         self._reserved = 1

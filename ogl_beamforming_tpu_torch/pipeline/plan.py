@@ -7,9 +7,9 @@ so there is no compile step and no program cache: :func:`compose_stages`
 runs the stages in order, each one dispatching to its CUDA kernel or its
 plain twin by the device of the data.
 
-Ported stages: Decode (Hadamard and Walsh) and DAS (the FORCES family).
-Demodulate, Filter and Hilbert raise ``NotImplementedError`` when the plan
-is built (queued in ROADMAP.md).
+Ported stages: Demodulate, Filter, Hilbert, Decode (Hadamard and Walsh)
+and DAS (the FORCES and RCA families).  A HERCULES-family DAS raises
+``NotImplementedError`` when the plan is built (queued in ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -19,20 +19,19 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ogl_beamforming_tpu.params.enums import (BeamformerError, DataKind,
-                                              DecodeMode, ErrorKind,
-                                              ShaderKind)
-from ogl_beamforming_tpu.params.types import Parameters
-from ogl_beamforming_tpu.pipeline.spec import PipelineSpec
-from ogl_beamforming_tpu.utils.filters import Filter
-from ogl_beamforming_tpu.utils.hadamard import hadamard, walsh
-from ogl_beamforming_tpu.utils.transforms import das_output_dimension
-
 from ..ops import das as das_ops
 from ..ops.coherency import coherency_weighting
 from ..ops.decode import decode_hadamard
+from ..ops.filtering import demodulate, fir_filter, hilbert
 from ..ops.golden import DasParams
+from ..params.enums import (BeamformerError, DataKind, DecodeMode, ErrorKind,
+                            ShaderKind)
+from ..params.types import Parameters
 from ..utils.device import resolve_device
+from ..utils.filters import Filter
+from ..utils.hadamard import hadamard, walsh
+from ..utils.transforms import das_output_dimension
+from .spec import PipelineSpec
 
 
 @dataclass(frozen=True)
@@ -148,17 +147,13 @@ def _decode_matrix(parameters: Parameters) -> np.ndarray:
 def build_plan(parameters: Parameters, pipeline: PipelineSpec,
                filters: dict[int, Filter], sparse_elements=None,
                focal_vectors=None, transmit_receive_orientations=None,
-               device="cpu") -> CompiledPlan:
+               device="cuda") -> CompiledPlan:
     """Build the plan for a parameter block's current state, with its
-    dynamic parameters on ``device``."""
+    dynamic parameters on ``device`` (a GPU unless the caller asks for the
+    CPU; ``RuntimeError`` when no GPU is available)."""
     dev = resolve_device(device)
     stage_descs, sample_count, fs, time_offset, iq = _plan_stages(
         parameters, pipeline, filters)
-    for sd in stage_descs:
-        if sd.kind in (ShaderKind.Demodulate, ShaderKind.Filter,
-                       ShaderKind.Hilbert):
-            raise NotImplementedError(
-                f"the {sd.kind.name} stage is not ported yet; see ROADMAP.md")
 
     has_das = any(s.kind == ShaderKind.DAS for s in pipeline.stages)
     output_points = tuple(
@@ -223,7 +218,10 @@ def build_plan(parameters: Parameters, pipeline: PipelineSpec,
 
     dyn: dict = {"das": das_dyn}
     for i, sd in enumerate(stage_descs):
-        if sd.kind == ShaderKind.Decode:
+        if sd.kind in (ShaderKind.Filter, ShaderKind.Demodulate):
+            f = filters[_stage_parameter(pipeline, sd.kind, i, stage_descs)]
+            dyn[f"taps{i}"] = torch.as_tensor(f.taps, device=dev)
+        elif sd.kind == ShaderKind.Decode:
             dyn[f"hadamard{i}"] = torch.as_tensor(
                 _decode_matrix(parameters), dtype=torch.float32, device=dev)
     dyn["sampling_frequency"] = torch.tensor(
@@ -232,6 +230,21 @@ def build_plan(parameters: Parameters, pipeline: PipelineSpec,
         np.float32(parameters.demodulation_frequency), device=dev)
 
     return CompiledPlan(descriptor=desc, dyn=dyn)
+
+
+def _stage_parameter(pipeline: PipelineSpec, kind: ShaderKind, index,
+                     stage_descs) -> int:
+    """The filter slot of the ``index``-th planned stage, a stage of
+    ``kind``: planned stages keep the user's order, so it is the slot of
+    the n-th stage of that kind in the pipeline."""
+    occurrence = sum(1 for sd in stage_descs[:index] if sd.kind == kind)
+    seen = 0
+    for s in pipeline.stages:
+        if s.kind == kind:
+            if seen == occurrence:
+                return s.parameter
+            seen += 1
+    raise KeyError(kind)
 
 
 def compose_stages(desc: PlanDescriptor, rf: torch.Tensor, dyn: dict,
@@ -251,14 +264,19 @@ def compose_stages(desc: PlanDescriptor, rf: torch.Tensor, dyn: dict,
     for i, sd in enumerate(desc.stages):
         if sd.kind == ShaderKind.Decode:
             x = decode_hadamard(x, dyn[f"hadamard{i}"])
+        elif sd.kind == ShaderKind.Demodulate:
+            x = demodulate(x, dyn[f"taps{i}"], dyn["demodulation_frequency"],
+                           dyn["sampling_frequency"], sd.decimation_rate,
+                           sd.filter_complex)
+        elif sd.kind == ShaderKind.Filter:
+            x = fir_filter(x, dyn[f"taps{i}"], 1)
+        elif sd.kind == ShaderKind.Hilbert:
+            x = hilbert(x)
         elif sd.kind == ShaderKind.DAS:
             rf_das = x if x.is_complex() else x.to(torch.float32)
             out = das_ops.das(rf_das.contiguous(), dyn["das"], sd.das)
             if desc.coherency_weighting:
                 out = coherency_weighting(*out)
-        else:
-            raise NotImplementedError(
-                f"the {sd.kind.name} stage is not ported yet; see ROADMAP.md")
         if mark is not None:
             mark()
     return x if out is None else out

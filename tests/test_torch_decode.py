@@ -85,7 +85,7 @@ def test_cuda_wrapper_rejects_cpu_tensor():
     """The kernel wrapper never runs the plain twin: a CPU tensor raises."""
     rf = torch.zeros((2, 4, 8), dtype=torch.int16)
     with pytest.raises(ValueError, match="CUDA"):
-        decode.decode_hadamard_cuda(rf, decode.hadamard_matrix(4))
+        decode.decode_hadamard_cuda(rf, decode.hadamard_matrix(4, "cpu"))
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
