@@ -16,8 +16,10 @@ line:
   3. kernels  each kernel against its plain-torch twin on the card at its
               path's shapes: int16 decode (128, 128, 4096) bit-equal, an
               order-12 and a float32 decode to 1e-6 of the peak, FORCES
-              cubic DAS 128 ch x 128 tx x 4096 samples -> 512 x 1024 voxels
-              and RCA Flash cubic IQ DAS 256 ch x 1 x 4096 complex samples ->
+              cubic DAS 128 ch x 128 tx x 4096 samples -> 512 x 1024 voxels,
+              FORCES cubic IQ DAS at path B's DAS stage (complex64 128 x 128
+              x 2048 at 20 MHz, the filter's delay in the time offset) and
+              RCA Flash cubic IQ DAS 256 ch x 1 x 4096 complex samples ->
               512 x 1024 to NRMSE 1e-4, demodulate int16 (128, 128, 4096)
               with the 16-tap Kaiser low-pass (and a complex chirp at D = 2)
               and FIR complex64 (128, 128, 2048) with real and complex taps
@@ -72,9 +74,11 @@ PEAK_F32_PER_S = 67e12
 # float32 operations per active pair of a DAS kernel, counted from
 # csrc/das.cu (a square root, division, cosine or sincos counts as one):
 # FORCES real cubic: transmit leg 5, index 1, cubic tap 26, weights and sum 3;
-# RCA IQ cubic: receive leg 16, complex cubic tap 35, rotation 10, scale and
-# sum 4.
+# FORCES IQ cubic: transmit leg 5, index 1, complex cubic tap 35, rotation 10,
+# weights and sum 5; RCA IQ cubic: receive leg 16, complex cubic tap 35,
+# rotation 10, scale and sum 4.
 OPS_FORCES_REAL_CUBIC = 35
+OPS_FORCES_IQ_CUBIC = 56
 OPS_RCA_IQ_CUBIC = 65
 
 PKG = "ogl_beamforming_tpu_torch"
@@ -279,6 +283,43 @@ def phase_kernels(dev) -> list[dict]:
         OPS_FORCES_REAL_CUBIC * pairs))
     del rf, das_k, das_p
 
+    # DAS, FORCES cubic IQ at path B's DAS stage: the plan of the preset's
+    # demodulate chain, with path B's Kaiser taps in slot 0
+    fs, fd = 40e6, 7.8e6
+    kaiser = make_filter(FilterParameters(
+        kind=FilterKind.Kaiser, sampling_frequency=fs / 2,
+        kaiser=KaiserFilterParameters(2e6, 4.0, 16)))
+    params, pipe = presets.forces_compounding(
+        channel_count=c, transmit_count=a, sample_count=s)
+    plan = build_plan(params, pipe, {0: kaiser}, device=dev)
+    st = plan.descriptor.stages[-1].das
+    dyn = plan.dyn["das"]
+    check(st.iq and st.sample_count == s // 2,
+          f"path B's DAS stage is not IQ over {s // 2} samples: {st}")
+    shape = (c, a, st.sample_count)
+    rf = torch.complex(
+        torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)),
+        torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+    ).to(dev)
+    iq_k = das_cuda.das_cuda(rf, dyn, st)
+    iq_p = das_ops.das_ref(rf, dyn, st)
+    iq_err = compare(iq_k, iq_p, 1e-4, "FORCES IQ DAS")
+    iq_nrmse = nrmse(iq_p.cpu().numpy(), iq_k.cpu().numpy())
+    iq_ms, iq_iqr = kernel_ms(lambda: das_cuda.das_cuda(rf, dyn, st))
+    iq_plain_ms = median_ms(lambda: das_ops.das_ref(rf, dyn, st), RUNS)
+    pairs = active_pairs(st, dyn)
+    print(f"[kernels] DAS FORCES cubic IQ {shape} at "
+          f"{float(dyn['sampling_frequency']) / 1e6:g} MHz, t0 "
+          f"{float(dyn['time_offset']):.4e} s -> {st.output_points}: NRMSE "
+          f"{iq_nrmse:.3e}, max abs err {iq_err:.3e}; kernel {iq_ms:.3f} ms "
+          f"(IQR {iq_iqr:.3f}), plain {iq_plain_ms:.3f} ms; {pairs} active "
+          f"pairs")
+    rows.append(kernel_row(
+        "das_forces_iq", "das.cu", "ops/das_pallas.py:1963", iq_err, iq_ms,
+        iq_plain_ms, rf.numel() * 8 + iq_k.numel() * 8,
+        OPS_FORCES_IQ_CUBIC * pairs))
+    del rf, iq_k, iq_p
+
     # DAS, RCA Flash cubic IQ at path A's shape
     params, pipe = presets.plane_wave_2d(data_kind=DataKind.Float32Complex)
     plan = build_plan(params, pipe, {}, device=dev)
@@ -307,10 +348,6 @@ def phase_kernels(dev) -> list[dict]:
     del rf, rca_k, rca_p
 
     # demodulate, int16 (128, 128, 4096) with path B's Kaiser taps
-    fs, fd = 40e6, 7.8e6
-    kaiser = make_filter(FilterParameters(
-        kind=FilterKind.Kaiser, sampling_frequency=fs / 2,
-        kaiser=KaiserFilterParameters(2e6, 4.0, 16)))
     taps = torch.from_numpy(kaiser.taps).to(dev)
     length = taps.shape[0]
     rf = torch.from_numpy(rng.integers(-2048, 2048, (c, a, s),
@@ -694,6 +731,7 @@ def main() -> None:
     launches.update(phase_main_rca(dev))
     demod = phase_main_demod(dev)
     launches["demodulate"] = demod["demodulate"]
+    launches["das_forces_iq"] = demod["das_forces"]
     launches["fir"] = fir_launches["fir"]
     for row in rows:
         row["launches"] = launches[row["name"]]

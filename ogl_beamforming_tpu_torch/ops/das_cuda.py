@@ -7,8 +7,11 @@ also gets its per-transmit tables (FORCES: element x positions; READI:
 Hadamard-row weights with rf acquisition ``e % A``; UFORCES:
 ``sparse_elements``, skipping acquisition 0); an RCA frame gets its
 per-acquisition transmit table (``das.rca_tables``).  Everything stays on
-the device: no host synchronisation.  :func:`das_cuda` checks its inputs,
-allocates the outputs and launches ``csrc/das.cu`` on the current stream.
+the device: no host synchronisation.  :func:`launch_tables` gathers them;
+they depend only on the plan, so ``build_plan`` builds them once into
+``dyn["launch"]`` and a frame reuses them.  :func:`das_cuda` checks its
+inputs, allocates the outputs and launches ``csrc/das.cu`` on the current
+stream.
 """
 
 from __future__ import annotations
@@ -40,11 +43,27 @@ def prepare(dyn: dict) -> torch.Tensor:
     ]).contiguous()
 
 
+def launch_tables(st: DasStatic, dyn: dict) -> dict:
+    """The kernel's scalar vector and the tables of ``st``'s family, as
+    contiguous device tensors: ``rca`` (A, 8) for an RCA frame; ``tx_pos``,
+    ``tx_weight`` and ``tx_row`` for a FORCES-family frame."""
+    tables = {"scalars": prepare(dyn)}
+    if st.family == "rca":
+        tables["rca"] = rca_tables(dyn)
+    else:
+        tx_pos, weight, row = transmit_tables(st, dyn)
+        tables["tx_pos"] = tx_pos.to(torch.float32).contiguous()
+        tables["tx_weight"] = weight.to(torch.float32).contiguous()
+        tables["tx_row"] = row.to(torch.int32).contiguous()
+    return tables
+
+
 def das_cuda(rf: torch.Tensor, dyn: dict, st: DasStatic):
     """Launch the DAS kernel of ``st``'s family (FORCES or RCA) on ``rf``
     (C, A, S): contiguous float32, or complex64 when ``st.iq``, on a CUDA
     device that also holds ``dyn``.  Returns the (nx, ny, nz) volume, or
-    ``(coherent, incoherent)`` with coherency weighting."""
+    ``(coherent, incoherent)`` with coherency weighting.  The tables come
+    from ``dyn["launch"]`` where the plan built them, else from ``dyn``."""
     if st.family not in ("forces", "rca") or st.frame_batch != 1:
         raise NotImplementedError(
             f"CUDA DAS covers single FORCES- and RCA-family frames, not "
@@ -60,7 +79,8 @@ def das_cuda(rf: torch.Tensor, dyn: dict, st: DasStatic):
                          f"(C, {st.acquisition_count}, {st.sample_count})")
     if not rf.is_contiguous():
         raise ValueError("rf must be contiguous")
-    scalars = prepare(dyn)
+    tables = dyn.get("launch") or launch_tables(st, dyn)
+    scalars = tables["scalars"]
     if scalars.device != rf.device:
         raise ValueError(f"dyn on {scalars.device}, rf on {rf.device}")
 
@@ -75,23 +95,21 @@ def das_cuda(rf: torch.Tensor, dyn: dict, st: DasStatic):
     lib = build.library()
     stream = torch.cuda.current_stream(rf.device).cuda_stream
     if st.family == "rca":
-        tab = rca_tables(dyn)
         name = "das_rca"
         code = lib.das_rca(
-            rf.data_ptr(), scalars.data_ptr(), tab.data_ptr(), out.data_ptr(),
-            inco_ptr, rf.shape[0], rf.shape[1], st.acquisition_count,
-            rf.shape[2], nx, ny, nz, gnx, gny, gnz, *flags, stream)
+            rf.data_ptr(), scalars.data_ptr(), tables["rca"].data_ptr(),
+            out.data_ptr(), inco_ptr, rf.shape[0], rf.shape[1],
+            st.acquisition_count, rf.shape[2], nx, ny, nz, gnx, gny, gnz,
+            *flags, stream)
     else:
-        tx_pos, weight, row = transmit_tables(st, dyn)
-        tx_pos = tx_pos.to(torch.float32).contiguous()
-        weight = weight.to(torch.float32).contiguous()
-        row = row.to(torch.int32).contiguous()
+        tx_pos = tables["tx_pos"]
         name = "das_forces"
         code = lib.das_forces(
             rf.data_ptr(), scalars.data_ptr(), tx_pos.data_ptr(),
-            weight.data_ptr(), row.data_ptr(), out.data_ptr(), inco_ptr,
-            rf.shape[0], st.channel_count, rf.shape[1], rf.shape[2],
-            tx_pos.shape[0], nx, ny, nz, gnx, gny, gnz, *flags, stream)
+            tables["tx_weight"].data_ptr(), tables["tx_row"].data_ptr(),
+            out.data_ptr(), inco_ptr, rf.shape[0], st.channel_count,
+            rf.shape[1], rf.shape[2], tx_pos.shape[0], nx, ny, nz, gnx, gny,
+            gnz, *flags, stream)
     build.check(name, code)
     build.LAUNCHES[name] += 1
     if st.coherency_weighting:

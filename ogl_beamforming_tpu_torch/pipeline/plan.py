@@ -21,6 +21,7 @@ import torch
 
 from ..ops import das as das_ops
 from ..ops.coherency import coherency_weighting
+from ..ops.das_cuda import launch_tables
 from ..ops.decode import decode_hadamard
 from ..ops.filtering import demodulate, fir_filter, hilbert
 from ..ops.golden import DasParams
@@ -204,6 +205,9 @@ def build_plan(parameters: Parameters, pipeline: PipelineSpec,
         das_static = das_ops.make_static(dp, iq=iq)
         das_ops.check_supported(das_static)
         das_dyn = das_ops.make_dynamic(dp, dev)
+        if dev.type == "cuda" and das_static.family in ("forces", "rca"):
+            # the kernel's scalar vector and tables depend only on the plan
+            das_dyn["launch"] = launch_tables(das_static, das_dyn)
         stage_descs.append(StageDesc(kind=ShaderKind.DAS, das=das_static))
 
     desc = PlanDescriptor(
