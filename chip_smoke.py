@@ -14,13 +14,20 @@ line:
   2. build    compiles csrc/*.cu with nvcc for sm_90a (kernels/build.py),
               one nvcc per source, all started together.
   3. kernels  each kernel against its plain-torch twin on the card at its
-              path's shapes: int16 decode (128, 128, 4096) bit-equal, an
+              path's shapes: int16 decode (128, 128, 4096), (128, 128,
+              2048) at path C and (256, 64, 2048) at path D bit-equal, an
               order-12 and a float32 decode to 1e-6 of the peak, FORCES
               cubic DAS 128 ch x 128 tx x 4096 samples -> 512 x 1024 voxels,
               FORCES cubic IQ DAS at path B's DAS stage (complex64 128 x 128
               x 2048 at 20 MHz, the filter's delay in the time offset) and
               RCA Flash cubic IQ DAS 256 ch x 1 x 4096 complex samples ->
-              512 x 1024 to NRMSE 1e-4, demodulate int16 (128, 128, 4096)
+              512 x 1024, HERCULES linear DAS 128 x 128 x 2048 -> 96^3
+              (path C), UFORCES linear DAS with the incoherent sum 256 x 64
+              x 2048 -> 128^3 (path D, both volumes) to NRMSE 1e-4, and
+              the four-frame RCA launch at path E's batch (4 x 256 x 1 x
+              4096 complex) against four single-frame launches (1e-6) and
+              its twin (1e-4), timed beside those four launches;
+              demodulate int16 (128, 128, 4096)
               with the 16-tap Kaiser low-pass (and a complex chirp at D = 2)
               and FIR complex64 (128, 128, 2048) with real and complex taps
               to NRMSE 1e-6; CUDA-event times of the kernel (median and
@@ -30,22 +37,33 @@ line:
               operations.
   4. canary   reduced configurations through Beamformer(device="cuda")
               against the NumPy golden oracle, NRMSE <= 1e-3: FORCES decode
-              -> DAS; path A (plane-wave Flash IQ); path B (Demodulate ->
-              Decode -> FORCES IQ DAS); [Decode, Filter (complex matched
-              chirp), DAS] on baseband data; [Decode, Hilbert, DAS].
-  5. main     three paths at full width through Beamformer(device="cuda"),
-              each a warmup and then 5 frames of a point-target acquisition
-              with the launch counts set to 0 just before and read just
-              after; the image peak must land within one voxel of the
-              target and each kernel of the path must launch once per
-              frame:
+              -> DAS, one frame and a batch of two through push_batch; path
+              A (plane-wave Flash IQ); path B (Demodulate -> Decode ->
+              FORCES IQ DAS); [Decode, Filter (complex matched chirp), DAS]
+              on baseband data; [Decode, Hilbert, DAS]; HERCULES 16 x 16 x
+              512 -> 24^3; uFORCES with coherency 32 x 16 x 512 -> 24^3.
+  5. main     six paths at full width through Beamformer(device="cuda"),
+              each a warmup and then 5 frames (path E: 5 batches of 4) of a
+              point-target acquisition with the launch counts set to 0 just
+              before and read just after; the image peak must land within
+              one voxel of the target on every axis and each kernel of the
+              path must launch once per frame (path E: once per batch):
                 main        the Quickstart (forces_compounding without
                             demodulation, 128 x 128 x 4096 -> 512 x 1024);
                 main_rca    path A, the plane-wave headline (plane_wave_2d,
                             Float32Complex, 256 ch x 4096 -> 512 x 1024);
                 main_demod  path B, the preset's default demodulate chain
                             (forces_compounding, 128 x 128 x 4096 int16,
-                            16-tap Kaiser at the pair rate).
+                            16-tap Kaiser at the pair rate);
+                main_hercules  path C, HERCULES 3D (hercules_3d, 128 x 128
+                            x 2048 int16 -> 96^3);
+                main_uforces  path D, uFORCES 3D with coherency
+                            (uforces_volumetric, 256 x 64 x 2048 int16, 63
+                            sparse transmits -> 128^3);
+                main_batch  path E, the plane-wave headline four frames per
+                            push_batch; each frame must match
+                            push_data_with_compute of it (NRMSE 1e-6) and
+                            averaged_frame the mean of the four.
               Prints device ms/frame with the stage split and ms/frame end
               to end.
 
@@ -80,6 +98,19 @@ PEAK_F32_PER_S = 67e12
 OPS_FORCES_REAL_CUBIC = 35
 OPS_FORCES_IQ_CUBIC = 56
 OPS_RCA_IQ_CUBIC = 65
+# HERCULES real linear, per (voxel, channel, transmit) triple inside the 2D
+# mask: transmit distance and mask 4, apodization 6 (square root, two
+# products, cosine, square, weight), index 4, linear tap 8, scale and sum 2.
+# FORCES real linear with the incoherent sum: transmit leg 5, index 1,
+# linear tap 8, weights and sum 3, incoherent sum 2.  A four-frame RCA IQ
+# cubic launch pays the pair's geometry once (receive leg 16, tap weights
+# 13, phase 4) and the rest per frame (complex cubic gather 22, rotation 6,
+# scale and sum 4).
+OPS_HERCULES_REAL_LINEAR = 24
+OPS_FORCES_REAL_LINEAR_COH = 19
+OPS_RCA_IQ_CUBIC_SHARED = 33
+OPS_RCA_IQ_CUBIC_FRAME = OPS_RCA_IQ_CUBIC - OPS_RCA_IQ_CUBIC_SHARED
+FRAME_BATCH = 4   # frames per push_batch on path E
 
 PKG = "ogl_beamforming_tpu_torch"
 TPU = "ogl_beamforming_tpu"
@@ -189,8 +220,24 @@ def active_pairs(st, dyn) -> int:
         x, z = world[:, 0:1], world[:, 2:3]
         rx_dx = x - chans[None] * dyn["xdc_element_pitch"][0]
         on = torch.abs(fnum * rx_dx / z) < 0.5
-        return int(on.sum()) * st.acquisition_count
+        return int(on.sum()) * len(das_ops.transmit_tables(st, dyn)[0])
     xdc = das_ops._apply_m4(dyn["xdc_transform"], world)
+    if st.family == "hercules":
+        # the 2D mask d2 < z^2 / (4 f#^2) over (channel, transmit), as the
+        # twin forms it, one channel at a time
+        rx_cols = bool(das_ops._rx_columns(dyn))
+        rx_lat, tx_lat = ((xdc[:, 0], xdc[:, 1]) if rx_cols
+                          else (xdc[:, 1], xdc[:, 0]))
+        pitch = dyn["xdc_element_pitch"][0 if rx_cols else 1]
+        foz = torch.abs(fnum / xdc[:, 2])
+        test = 0.25 / (foz * foz)
+        tx_dd = tx_lat[None] - das_ops.transmit_tables(st, dyn)[0][:, None]
+        tx_d2 = tx_dd * tx_dd
+        total = 0
+        for ch in chans:
+            rx_dd = rx_lat - ch * pitch
+            total += int(((rx_dd * rx_dd)[None] + tx_d2 < test[None]).sum())
+        return total
     tabs = das_ops.rca_tables(dyn)
     total = 0
     for a in range(st.acquisition_count):
@@ -203,6 +250,35 @@ def active_pairs(st, dyn) -> int:
     return total
 
 
+def das_row(name, label, rf, dyn, st, ops_per_pair) -> dict:
+    """The DAS kernel against its twin on ``rf`` (each output, coherent and
+    incoherent, to NRMSE 1e-4), both timed, the line printed; returns the
+    kernel's row, its bound from ``ops_per_pair`` per active pair."""
+    from ogl_beamforming_tpu_torch.ops import das as das_ops
+    from ogl_beamforming_tpu_torch.ops import das_cuda
+    outs_k = das_cuda.das_cuda(rf, dyn, st)
+    t0 = time.perf_counter()
+    outs_p = das_ops.das_ref(rf, dyn, st)
+    if not isinstance(outs_k, tuple):
+        outs_k, outs_p = (outs_k,), (outs_p,)
+    err = max(compare(k, p, 1e-4, f"{label} DAS output {i}")
+              for i, (k, p) in enumerate(zip(outs_k, outs_p)))
+    worst = max(nrmse(p.cpu().numpy(), k.cpu().numpy())
+                for k, p in zip(outs_k, outs_p))
+    plain_ms = median_ms(lambda: das_ops.das_ref(rf, dyn, st), RUNS)
+    twin_s = time.perf_counter() - t0
+    ms, iqr = kernel_ms(lambda: das_cuda.das_cuda(rf, dyn, st))
+    out_bytes = sum(k.numel() * k.element_size() for k in outs_k)
+    pairs = active_pairs(st, dyn)
+    print(f"[kernels] DAS {label} {tuple(rf.shape)} -> {st.output_points}: "
+          f"NRMSE {worst:.3e}, max abs err {err:.3e}; kernel {ms:.3f} ms "
+          f"(IQR {iqr:.3f}), plain {plain_ms:.3f} ms; {pairs} active pairs; "
+          f"twin took {twin_s:.1f} s")
+    return kernel_row(name, "das.cu", "ops/das_pallas.py:1963", err, ms,
+                      plain_ms, rf.numel() * rf.element_size() + out_bytes,
+                      ops_per_pair * pairs)
+
+
 def phase_kernels(dev) -> list[dict]:
     import torch.nn.functional as F
 
@@ -211,8 +287,7 @@ def phase_kernels(dev) -> list[dict]:
                                            KaiserFilterParameters,
                                            MatchedChirpFilterParameters)
     from ogl_beamforming_tpu_torch.models import presets
-    from ogl_beamforming_tpu_torch.ops import das as das_ops
-    from ogl_beamforming_tpu_torch.ops import das_cuda, decode, filtering
+    from ogl_beamforming_tpu_torch.ops import decode, filtering
     from ogl_beamforming_tpu_torch.pipeline.plan import build_plan
     from ogl_beamforming_tpu_torch.utils.filters import make_filter
 
@@ -242,6 +317,20 @@ def phase_kernels(dev) -> list[dict]:
         2.0 * c * a * a * s, dec_lib_ms))
     del rf32, out_k, out_p
 
+    # decode, int16 at paths C (order 128) and D (order 64, 256 channels):
+    # bit-equal
+    for label, shape in (("path C", (128, 128, 2048)),
+                         ("path D", (256, 64, 2048))):
+        x = torch.from_numpy(rng.integers(-32768, 32767, shape,
+                                          dtype=np.int16)).to(dev)
+        hh = decode.hadamard_matrix(shape[1], device=dev)
+        k = decode.decode_hadamard_cuda(x, hh)
+        p = decode.decode_hadamard_ref(x, hh)
+        torch.cuda.synchronize()
+        check(torch.equal(k, p), f"int16 decode at {label} {shape} != twin")
+        print(f"[kernels] decode int16 {label} {shape}: bit-equal")
+        del x, k, p
+
     # decode, order 12 (int16) and float32: max error <= 1e-6 of the peak
     for label, shape, f32 in (("order-12 int16", (c, 12, s), False),
                               ("float32", (c, a, s), True)):
@@ -265,23 +354,9 @@ def phase_kernels(dev) -> list[dict]:
     dyn = plan.dyn["das"]
     rf = torch.from_numpy(
         rng.standard_normal((c, a, s), dtype=np.float32)).to(dev)
-    das_k = das_cuda.das_cuda(rf, dyn, st)
-    das_p = das_ops.das_ref(rf, dyn, st)
-    das_err = compare(das_k, das_p, 1e-4, "FORCES DAS")
-    das_nrmse = nrmse(das_p.cpu().numpy(), das_k.cpu().numpy())
-    das_ms, das_iqr = kernel_ms(lambda: das_cuda.das_cuda(rf, dyn, st))
-    das_plain_ms = median_ms(lambda: das_ops.das_ref(rf, dyn, st), RUNS)
-    pairs = active_pairs(st, dyn)
-    print(f"[kernels] DAS FORCES cubic {c}x{a}x{s} -> {st.output_points}: "
-          f"NRMSE {das_nrmse:.3e}, max abs err {das_err:.3e}; kernel "
-          f"{das_ms:.3f} ms (IQR {das_iqr:.3f}), plain {das_plain_ms:.3f} "
-          f"ms; {pairs} active "
-          f"pairs")
-    rows.append(kernel_row(
-        "das_forces", "das.cu", "ops/das_pallas.py:1963", das_err, das_ms,
-        das_plain_ms, rf.numel() * 4 + das_k.numel() * 4,
-        OPS_FORCES_REAL_CUBIC * pairs))
-    del rf, das_k, das_p
+    rows.append(das_row("das_forces", "FORCES cubic", rf, dyn, st,
+                        OPS_FORCES_REAL_CUBIC))
+    del rf
 
     # DAS, FORCES cubic IQ at path B's DAS stage: the plan of the preset's
     # demodulate chain, with path B's Kaiser taps in slot 0
@@ -301,24 +376,12 @@ def phase_kernels(dev) -> list[dict]:
         torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)),
         torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
     ).to(dev)
-    iq_k = das_cuda.das_cuda(rf, dyn, st)
-    iq_p = das_ops.das_ref(rf, dyn, st)
-    iq_err = compare(iq_k, iq_p, 1e-4, "FORCES IQ DAS")
-    iq_nrmse = nrmse(iq_p.cpu().numpy(), iq_k.cpu().numpy())
-    iq_ms, iq_iqr = kernel_ms(lambda: das_cuda.das_cuda(rf, dyn, st))
-    iq_plain_ms = median_ms(lambda: das_ops.das_ref(rf, dyn, st), RUNS)
-    pairs = active_pairs(st, dyn)
-    print(f"[kernels] DAS FORCES cubic IQ {shape} at "
-          f"{float(dyn['sampling_frequency']) / 1e6:g} MHz, t0 "
-          f"{float(dyn['time_offset']):.4e} s -> {st.output_points}: NRMSE "
-          f"{iq_nrmse:.3e}, max abs err {iq_err:.3e}; kernel {iq_ms:.3f} ms "
-          f"(IQR {iq_iqr:.3f}), plain {iq_plain_ms:.3f} ms; {pairs} active "
-          f"pairs")
-    rows.append(kernel_row(
-        "das_forces_iq", "das.cu", "ops/das_pallas.py:1963", iq_err, iq_ms,
-        iq_plain_ms, rf.numel() * 8 + iq_k.numel() * 8,
-        OPS_FORCES_IQ_CUBIC * pairs))
-    del rf, iq_k, iq_p
+    rows.append(das_row(
+        "das_forces_iq",
+        f"FORCES cubic IQ at {float(dyn['sampling_frequency']) / 1e6:g} MHz, "
+        f"t0 {float(dyn['time_offset']):.4e} s", rf, dyn, st,
+        OPS_FORCES_IQ_CUBIC))
+    del rf
 
     # DAS, RCA Flash cubic IQ at path A's shape
     params, pipe = presets.plane_wave_2d(data_kind=DataKind.Float32Complex)
@@ -330,22 +393,9 @@ def phase_kernels(dev) -> list[dict]:
         torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)),
         torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
     ).to(dev)
-    rca_k = das_cuda.das_cuda(rf, dyn, st)
-    rca_p = das_ops.das_ref(rf, dyn, st)
-    rca_err = compare(rca_k, rca_p, 1e-4, "RCA DAS")
-    rca_nrmse = nrmse(rca_p.cpu().numpy(), rca_k.cpu().numpy())
-    rca_ms, rca_iqr = kernel_ms(lambda: das_cuda.das_cuda(rf, dyn, st))
-    rca_plain_ms = median_ms(lambda: das_ops.das_ref(rf, dyn, st), RUNS)
-    pairs = active_pairs(st, dyn)
-    print(f"[kernels] DAS RCA Flash cubic IQ {tuple(shape)} -> "
-          f"{st.output_points}: NRMSE {rca_nrmse:.3e}, max abs err "
-          f"{rca_err:.3e}; kernel {rca_ms:.3f} ms (IQR {rca_iqr:.3f}), plain "
-          f"{rca_plain_ms:.3f} ms; {pairs} active pairs")
-    rows.append(kernel_row(
-        "das_rca", "das.cu", "ops/das_pallas.py:1963", rca_err, rca_ms,
-        rca_plain_ms, rf.numel() * 8 + rca_k.numel() * 8,
-        OPS_RCA_IQ_CUBIC * pairs))
-    del rf, rca_k, rca_p
+    rows.append(das_row("das_rca", "RCA Flash cubic IQ", rf, dyn, st,
+                        OPS_RCA_IQ_CUBIC))
+    del rf
 
     # demodulate, int16 (128, 128, 4096) with path B's Kaiser taps
     taps = torch.from_numpy(kaiser.taps).to(dev)
@@ -424,16 +474,89 @@ def phase_kernels(dev) -> list[dict]:
     return rows
 
 
-def synthesize_forces_frame(c, a, s, fs, sos, pitch, target, f0, h):
-    """Per-(channel, transmit) echoes of a point target, Hadamard-encoded
-    across transmits as the scanner records them, as int16 (C, A*S)."""
-    rx_x = np.arange(c) * pitch
-    tx_x = np.arange(a) * pitch
-    ty = target[1] - pitch * c / 2
-    rx_d = np.sqrt((target[0] - rx_x) ** 2 + target[2] ** 2)
-    tx_d = np.sqrt(ty ** 2 + target[2] ** 2 + (target[0] - tx_x) ** 2)
-    dist = (rx_d[:, None] + tx_d[None, :]).astype(np.float32)
+def phase_kernels_volumes(dev) -> list[dict]:
+    """Phase 3 at the shapes of paths C, D and E: HERCULES DAS, UFORCES DAS
+    with the incoherent sum, and the four-frame RCA launch."""
+    import dataclasses
+
+    from ogl_beamforming_tpu_torch import DataKind
+    from ogl_beamforming_tpu_torch.models import presets
+    from ogl_beamforming_tpu_torch.ops import das as das_ops
+    from ogl_beamforming_tpu_torch.ops import das_cuda
+    from ogl_beamforming_tpu_torch.pipeline.plan import build_plan
+
+    rng = np.random.default_rng(4321)
+    rows = []
+    for label, name, ops in (
+            ("HERCULES linear (path C)", "das_hercules",
+             OPS_HERCULES_REAL_LINEAR),
+            ("UFORCES linear + incoherent sum (path D)", "das_forces_coh3d",
+             OPS_FORCES_REAL_LINEAR_COH)):
+        if name == "das_hercules":
+            params, pipe = presets.hercules_3d()
+            plan = build_plan(params, pipe, {}, device=dev)
+        else:
+            params, pipe, sparse = presets.uforces_volumetric()
+            plan = build_plan(params, pipe, {}, sparse_elements=sparse,
+                              device=dev)
+        st = plan.descriptor.stages[-1].das
+        dyn = plan.dyn["das"]
+        shape = (params.channel_count, params.acquisition_count,
+                 st.sample_count)
+        rf = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                              ).to(dev)
+        rows.append(das_row(name, label, rf, dyn, st, ops))
+        del rf
+
+    # the four-frame RCA launch at path E's batch, against four
+    # single-frame launches and the twin, and timed beside them
+    params, pipe = presets.plane_wave_2d(data_kind=DataKind.Float32Complex)
+    plan = build_plan(params, pipe, {}, device=dev, frame_batch=FRAME_BATCH)
+    st4 = plan.descriptor.stages[-1].das
+    st1 = dataclasses.replace(st4, frame_batch=1)
+    dyn = plan.dyn["das"]
+    shape = (FRAME_BATCH, params.channel_count, 1, params.sample_count)
+    rf = torch.complex(
+        torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)),
+        torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+    ).to(dev)
+    out4 = das_cuda.das_cuda(rf, dyn, st4)
+    ones = [das_cuda.das_cuda(rf[b], dyn, st1) for b in range(FRAME_BATCH)]
+    torch.cuda.synchronize()
+    equal = all(torch.equal(out4[b], ones[b]) for b in range(FRAME_BATCH))
+    fb_err = max(compare(out4[b], ones[b], 1e-6, f"four-frame RCA frame {b}")
+                 for b in range(FRAME_BATCH))
+    twin = das_ops.das_ref(rf, dyn, st4)
+    err = compare(out4, twin, 1e-4, "four-frame RCA vs twin")
+    worst = nrmse(twin.cpu().numpy(), out4.cpu().numpy())
+    ms, iqr = kernel_ms(lambda: das_cuda.das_cuda(rf, dyn, st4))
+    ones_ms, ones_iqr = kernel_ms(
+        lambda: [das_cuda.das_cuda(rf[b], dyn, st1)
+                 for b in range(FRAME_BATCH)])
+    plain_ms = median_ms(lambda: das_ops.das_ref(rf, dyn, st4), RUNS)
+    pairs = active_pairs(st1, dyn)
+    print(f"[kernels] DAS RCA Flash cubic IQ, {FRAME_BATCH} frames in one "
+          f"launch {tuple(shape)} -> {st1.output_points}: vs single-frame "
+          f"launches max abs err {fb_err:.3e}, bit-equal {equal}; vs twin "
+          f"NRMSE {worst:.3e}; one {FRAME_BATCH}-frame launch {ms:.3f} ms "
+          f"(IQR {iqr:.3f}), {FRAME_BATCH} single-frame launches "
+          f"{ones_ms:.3f} ms (IQR {ones_iqr:.3f}); plain {plain_ms:.3f} ms; "
+          f"{pairs} active pairs per frame")
+    rows.append(kernel_row(
+        "das_rca_fb4", "das.cu", "ops/das_pallas.py:1963", max(err, fb_err),
+        ms, plain_ms, rf.numel() * 8 + out4.numel() * 8,
+        pairs * (OPS_RCA_IQ_CUBIC_SHARED
+                 + FRAME_BATCH * OPS_RCA_IQ_CUBIC_FRAME)))
+    return rows
+
+
+def encode_echoes(dist, s, fs, sos, f0, h):
+    """Echoes of a point target whose (channel, acquisition) path lengths
+    are ``dist`` (C, A) metres (1 km: a silent acquisition), Hadamard-
+    encoded across acquisitions as the scanner records them, as int16
+    (C, A*S)."""
     t = (np.arange(s) / fs).astype(np.float32)
+    dist = dist.astype(np.float32)
     arg = t[None, None, :] - dist[:, :, None] / np.float32(sos)
     env = np.exp(-0.5 * (arg / np.float32(2 / f0 / 4)) ** 2)
     # a cosine burst (examples/point_scatterer.py uses a sine): the preset's
@@ -443,7 +566,42 @@ def synthesize_forces_frame(c, a, s, fs, sos, pitch, target, f0, h):
     echo = (env * np.cos(np.float32(2 * np.pi * f0) * arg)).astype(np.float32)
     encoded = np.matmul(h.T.astype(np.float32), echo)   # "tj,cts->cjs"
     encoded *= 30000.0 / np.abs(encoded).max()
-    return np.clip(encoded, -32768, 32767).astype(np.int16).reshape(c, -1)
+    return np.clip(encoded, -32768, 32767).astype(np.int16).reshape(
+        dist.shape[0], -1)
+
+
+def synthesize_forces_frame(c, a, s, fs, sos, pitch, target, f0, h,
+                            elements=None):
+    """A point target under FORCES (transmit ``j`` fires element ``j``) or
+    uFORCES (acquisition ``j + 1`` fires ``elements[j]``, acquisition 0 is
+    silent): the twin's receive and transmit legs, int16 (C, A*S)."""
+    rx_x = np.arange(c) * pitch
+    ty = target[1] - pitch * c / 2
+    rx_d = np.sqrt((target[0] - rx_x) ** 2 + target[2] ** 2)
+    if elements is None:
+        tx_x = np.arange(a) * pitch
+    else:
+        tx_x = np.concatenate([[np.nan], np.asarray(elements[:a - 1]) * pitch])
+    tx_d = np.sqrt(ty ** 2 + target[2] ** 2 + (target[0] - tx_x) ** 2)
+    dist = np.nan_to_num(rx_d[:, None] + tx_d[None, :], nan=1e3)
+    return encode_echoes(dist, s, fs, sos, f0, h)
+
+
+def synthesize_hercules_frame(params, target, h):
+    """A point target under HERCULES as the twin delays it: acquisition 0's
+    plane-wave transmit from the rows, then the receive leg
+    ``sqrt(z^2 + d2)`` from column ``c`` at ``x = c p`` and row ``j`` at
+    ``y = j p``; int16 (C, A*S)."""
+    c, a = params.channel_count, params.acquisition_count
+    pitch = float(params.xdc_element_pitch[0])
+    x, y, z = target
+    angle = np.radians(float(params.focal_vector[0]))
+    tx = y * np.sin(angle) + z * np.cos(angle)
+    d2 = ((x - np.arange(c) * pitch) ** 2)[:, None] \
+        + ((y - np.arange(a) * pitch) ** 2)[None, :]
+    return encode_echoes(tx + np.sqrt(z * z + d2), params.sample_count,
+                         params.sampling_frequency, params.speed_of_sound,
+                         params.demodulation_frequency, h)
 
 
 def synthesize_plane_wave_frame(c, s, fs, sos, pitch, target, fd):
@@ -462,9 +620,10 @@ def synthesize_plane_wave_frame(c, s, fs, sos, pitch, target, fd):
     return out
 
 
-def golden_das(p, rf, sample_count, fs, time_offset, vt=None):
+def golden_das(p, rf, sample_count, fs, time_offset, vt=None, **kw):
     """The golden DAS of ``rf`` (C, A, S') with ``p``'s geometry at the DAS
-    stage's sample count, sampling rate and time offset."""
+    stage's sample count, sampling rate and time offset (``kw``: further
+    ``DasParams`` fields)."""
     from ogl_beamforming_tpu_torch.ops import golden
     from ogl_beamforming_tpu_torch.utils.transforms import das_output_dimension
     return golden.das(rf, golden.DasParams(
@@ -483,18 +642,26 @@ def golden_das(p, rf, sample_count, fs, time_offset, vt=None):
                             das_output_dimension(p.output_points[:3])),
         transmit_receive_orientation=p.transmit_receive_orientation,
         transmit_angle=float(p.focal_vector[0]),
-        focus_depth=float(p.focal_vector[1])))
+        focus_depth=float(p.focal_vector[1]), **kw))
 
 
-def run_frame(dev, p, shaders, data_kind, raw, filters=()):
-    """One frame through a fresh Beamformer on ``dev``."""
+def beamformer(dev, p, shaders, data_kind, filters=(), sparse=None):
+    """A fresh Beamformer on ``dev`` configured with ``p``."""
     from ogl_beamforming_tpu_torch.pipeline.executor import Beamformer
     bf = Beamformer(device=dev)
     for slot, fp in filters:
         bf.create_filter(fp, filter_slot=slot)
     bf.push_parameters(p)
     bf.push_pipeline(shaders, data_kind)
-    return bf.push_data_with_compute(raw).to_numpy()
+    if sparse is not None:
+        bf.push_sparse_elements(sparse)
+    return bf
+
+
+def run_frame(dev, p, shaders, data_kind, raw, filters=(), sparse=None):
+    """One frame through a fresh Beamformer on ``dev``."""
+    return beamformer(dev, p, shaders, data_kind, filters,
+                      sparse).push_data_with_compute(raw).to_numpy()
 
 
 def check_canary(label, out, ref, shape) -> None:
@@ -520,7 +687,8 @@ def phase_canary(dev) -> dict:
     from ogl_beamforming_tpu_torch.ops import golden
     from ogl_beamforming_tpu_torch.utils.filters import make_filter
     from ogl_beamforming_tpu_torch.utils.hadamard import hadamard
-    from ogl_beamforming_tpu_torch.utils.transforms import das_transform_2d_xz
+    from ogl_beamforming_tpu_torch.utils.transforms import (
+        das_transform_2d_xz, das_transform_3d)
 
     # FORCES decode -> DAS
     c, a, s, pitch = 32, 16, 1024, 0.3e-3
@@ -541,6 +709,43 @@ def phase_canary(dev) -> dict:
     dec = golden.decode_hadamard(raw.reshape(c, a, s), hadamard(a))
     check_canary(f"FORCES {c}x{a}x{s} -> 64x64", out,
                  golden_das(p, dec, s, 20e6, 0.0), (64, 64, 1))
+
+    # the same, a batch of two frames through push_batch
+    raw2 = rng.integers(-2048, 2048, (2, c, a * s), dtype=np.int16)
+    frames = beamformer(dev, p, [ShaderKind.Decode, ShaderKind.DAS],
+                        DataKind.Int16).push_batch(raw2)
+    for b, frame in enumerate(frames):
+        dec = golden.decode_hadamard(raw2[b].reshape(c, a, s), hadamard(a))
+        check_canary(f"FORCES push_batch frame {b} of 2", frame.to_numpy(),
+                     golden_das(p, dec, s, 20e6, 0.0), (64, 64, 1))
+
+    # HERCULES 3D and uFORCES 3D with coherency, voxels in the first 12 mm
+    ph, pipe = presets.hercules_3d(channel_count=16, acquisition_count=16,
+                                   sample_count=512,
+                                   output_points=(24, 24, 24))
+    ap = 15 * float(ph.xdc_element_pitch[0])
+    ph.das_voxel_transform = das_transform_3d([0, 0, 2e-3], [ap, ap, 12e-3])
+    raw = rng.integers(-2048, 2048, (16, 16 * 512), dtype=np.int16)
+    out = run_frame(dev, ph, pipe.shaders, pipe.data_kind, raw)
+    dec = golden.decode_hadamard(raw.reshape(16, 16, 512), hadamard(16))
+    check_canary("HERCULES 16x16x512 -> 24^3", out,
+                 golden_das(ph, dec, 512, ph.sampling_frequency,
+                            ph.time_offset), (24, 24, 24))
+    pu, pipe, sparse = presets.uforces_volumetric(
+        channel_count=32, acquisition_count=16, sample_count=512,
+        output_points=(24, 24, 24))
+    ap = 31 * float(pu.xdc_element_pitch[0])
+    pu.das_voxel_transform = das_transform_3d([0, -ap / 2, 2e-3],
+                                              [ap, ap / 2, 12e-3])
+    raw = rng.integers(-2048, 2048, (32, 16 * 512), dtype=np.int16)
+    out = run_frame(dev, pu, pipe.shaders, pipe.data_kind, raw,
+                    sparse=sparse)
+    dec = golden.decode_hadamard(raw.reshape(32, 16, 512), hadamard(16))
+    ref = golden.coherency_weighting(*golden_das(
+        pu, dec, 512, pu.sampling_frequency, pu.time_offset, sparse=True,
+        sparse_elements=sparse, coherency_weighting=True))
+    check_canary("uFORCES + coherency 32x16x512 -> 24^3", out, ref,
+                 (24, 24, 24))
 
     # path A reduced: plane-wave Flash IQ on Float32Complex wire data
     pa, pipe = presets.plane_wave_2d(
@@ -605,21 +810,38 @@ def phase_canary(dev) -> dict:
     return filter_launches
 
 
+def peak_check(label, img, target_voxel) -> tuple:
+    """The peak of |img| must lie within one voxel of ``target_voxel`` on
+    every axis; returns the peak's voxel."""
+    check(np.isfinite(img).all(), f"{label}: values not finite")
+    peak = np.unravel_index(np.argmax(np.abs(img)), img.shape)
+    check(all(abs(int(p) - t) <= 1 for p, t in zip(peak, target_voxel)),
+          f"{label}: image peak at voxel {tuple(map(int, peak))}, target "
+          f"{tuple(target_voxel)}")
+    return tuple(int(p) for p in peak)
+
+
+def stage_split(bf, first_row, rows) -> tuple[np.ndarray, str]:
+    """Median per-stage ms of stats rows ``first_row`` .. ``+ rows``."""
+    stages = bf._blocks[0]._plan.descriptor.stages
+    times = bf.compute_timings().times[first_row:first_row + rows,
+                                       :len(stages)] * 1e3
+    stage = np.median(times, axis=0)
+    return stage, " + ".join(f"{sd.kind.name} {t:.3f}"
+                             for sd, t in zip(stages, stage))
+
+
 def drive(label, dev, params, pipe, raw, target_voxel, kernels,
-          filters=()) -> dict:
+          filters=(), sparse=None) -> dict:
     """Warm up, then RUNS frames of ``raw`` through Beamformer(device=dev)
     with the launch counts set to 0 just before and read just after; the
-    peak of |image| must lie within one voxel of ``target_voxel`` and each
-    of ``kernels`` must launch once per frame.  Returns the counts."""
+    peak of |image| must lie within one voxel of ``target_voxel`` on every
+    axis and each of ``kernels`` must launch once per frame.  Returns the
+    counts."""
     from ogl_beamforming_tpu_torch.kernels import build
-    from ogl_beamforming_tpu_torch.pipeline.executor import Beamformer
 
-    nx, nz = int(params.output_points[0]), int(params.output_points[1])
-    bf = Beamformer(device=dev)
-    for slot, fp in filters:
-        bf.create_filter(fp, filter_slot=slot)
-    bf.push_parameters(params)
-    bf.push_pipeline(pipe.shaders, pipe.data_kind)
+    bf = beamformer(dev, params, pipe.shaders, pipe.data_kind, filters,
+                    sparse)
     bf.warmup()
     torch.cuda.synchronize()
 
@@ -634,20 +856,13 @@ def drive(label, dev, params, pipe, raw, target_voxel, kernels,
           f"{label}: kernel launch counts {launches} != {RUNS} frames")
 
     img = frame.to_numpy()
-    check(img.shape == (nx, nz, 1) and np.isfinite(img).all(),
-          f"{label}: frame shape {img.shape} or values not finite")
-    px, pz = np.unravel_index(np.argmax(np.abs(img[:, :, 0])), (nx, nz))
-    tx, tz = target_voxel
-    check(abs(px - tx) <= 1 and abs(pz - tz) <= 1,
-          f"{label}: image peak at voxel ({px}, {pz}), target ({tx}, {tz})")
+    shape = grid_shape(params)
+    check(img.shape == shape, f"{label}: frame shape {img.shape} != {shape}")
+    peak = peak_check(label, img, target_voxel)
 
     # stats rows 1..RUNS hold the timed frames (row 0 is the warmup frame)
-    stages = bf._blocks[0]._plan.descriptor.stages
-    times = bf.compute_timings().times[1:1 + RUNS, :len(stages)] * 1e3  # ms
-    stage = np.median(times, axis=0)
-    split = " + ".join(f"{sd.kind.name} {t:.3f}"
-                       for sd, t in zip(stages, stage))
-    print(f"[{label}] peak ({px}, {pz}) vs target ({tx}, {tz}); launches "
+    stage, split = stage_split(bf, 1, RUNS)
+    print(f"[{label}] peak {peak} vs target {tuple(target_voxel)}; launches "
           f"{launches}")
     print(f"[{label}] device ms/frame {float(stage.sum()):.3f} ({split}, "
           f"median CUDA events); end to end incl. host prepare_rf + upload "
@@ -655,11 +870,19 @@ def drive(label, dev, params, pipe, raw, target_voxel, kernels,
     return launches
 
 
-def target_world(params, tx: int, tz: int) -> np.ndarray:
-    """World point of voxel (tx, tz) of a 2D (x, z) output grid."""
-    nx, nz = int(params.output_points[0]), int(params.output_points[1])
+def grid_shape(params) -> tuple:
+    """The DAS grid of ``params`` (a 2D preset's grid is (nx, nz, 1))."""
+    from ogl_beamforming_tpu_torch.utils import transforms
+    return tuple(int(n) for n in
+                 transforms.das_output_dimension(params.output_points[:3]))
+
+
+def target_world(params, voxel) -> np.ndarray:
+    """World point of ``voxel`` (ix, iy, iz) of the DAS grid."""
+    n = grid_shape(params)
     vt = np.asarray(params.das_voxel_transform, np.float64)
-    return (vt @ np.array([tx / (nx - 1), tz / (nz - 1), 0.0, 1.0]))[:3]
+    u = [v / max(int(k) - 1, 1) for v, k in zip(voxel, n)]
+    return (vt @ np.array([*u, 1.0]))[:3]
 
 
 def phase_main(dev) -> dict:
@@ -669,14 +892,14 @@ def phase_main(dev) -> dict:
     c, a, s = 128, 128, 4096
     params, pipe = presets.forces_compounding(
         channel_count=c, transmit_count=a, sample_count=s, demodulate=False)
-    tx, tz = (int(v) // 2 for v in params.output_points[:2])
-    target = target_world(params, tx, tz)
+    voxel = (int(params.output_points[0]) // 2,
+             int(params.output_points[1]) // 2, 0)
     raw = synthesize_forces_frame(
         c, a, s, params.sampling_frequency, params.speed_of_sound,
-        float(params.xdc_element_pitch[0]), target,
+        float(params.xdc_element_pitch[0]), target_world(params, voxel),
         params.demodulation_frequency,
         decode.hadamard_matrix(a, "cpu").numpy())
-    return drive("main", dev, params, pipe, raw, (tx, tz),
+    return drive("main", dev, params, pipe, raw, voxel,
                  ("decode_hadamard", "das_forces"))
 
 
@@ -686,13 +909,12 @@ def phase_main_rca(dev) -> dict:
 
     params, pipe = presets.plane_wave_2d(data_kind=DataKind.Float32Complex)
     # a target inside the 0-51 mm aperture: x = 25.5 mm, z = 40.2 mm
-    tx, tz = 364, 199
-    target = target_world(params, tx, tz)
+    voxel = (364, 199, 0)
     raw = synthesize_plane_wave_frame(
         params.channel_count, params.sample_count, params.sampling_frequency,
-        params.speed_of_sound, float(params.xdc_element_pitch[0]), target,
-        params.demodulation_frequency)
-    return drive("main_rca", dev, params, pipe, raw, (tx, tz), ("das_rca",))
+        params.speed_of_sound, float(params.xdc_element_pitch[0]),
+        target_world(params, voxel), params.demodulation_frequency)
+    return drive("main_rca", dev, params, pipe, raw, voxel, ("das_rca",))
 
 
 def phase_main_demod(dev) -> dict:
@@ -704,11 +926,11 @@ def phase_main_demod(dev) -> dict:
     c, a, s = 128, 128, 4096
     params, pipe = presets.forces_compounding(
         channel_count=c, transmit_count=a, sample_count=s)
-    tx, tz = (int(v) // 2 for v in params.output_points[:2])
-    target = target_world(params, tx, tz)
+    voxel = (int(params.output_points[0]) // 2,
+             int(params.output_points[1]) // 2, 0)
     raw = synthesize_forces_frame(
         c, a, s, params.sampling_frequency, params.speed_of_sound,
-        float(params.xdc_element_pitch[0]), target,
+        float(params.xdc_element_pitch[0]), target_world(params, voxel),
         params.demodulation_frequency,
         decode.hadamard_matrix(a, "cpu").numpy())
     # the Kaiser low-pass is designed at the rate it runs at, the pair rate
@@ -716,16 +938,113 @@ def phase_main_demod(dev) -> dict:
     fp = FilterParameters(kind=FilterKind.Kaiser,
                           sampling_frequency=params.sampling_frequency / 2,
                           kaiser=KaiserFilterParameters(2e6, 4.0, 16))
-    return drive("main_demod", dev, params, pipe, raw, (tx, tz),
+    return drive("main_demod", dev, params, pipe, raw, voxel,
                  ("demodulate", "decode_hadamard", "das_forces"),
                  filters=[(0, fp)])
+
+
+def phase_main_hercules(dev) -> dict:
+    from ogl_beamforming_tpu_torch.models import presets
+    from ogl_beamforming_tpu_torch.ops import decode
+
+    params, pipe = presets.hercules_3d()
+    # mid-aperture, 3/7 of the way down the 5-40 mm depth range: voxel
+    # (48, 48, 40) of 96^3, x = y = 19.3 mm, z = 19.7 mm
+    nx, ny, nz = grid_shape(params)
+    voxel = (nx // 2, ny // 2, (nz - 1) * 3 // 7)
+    raw = synthesize_hercules_frame(
+        params, target_world(params, voxel),
+        decode.hadamard_matrix(params.acquisition_count, "cpu").numpy())
+    return drive("main_hercules", dev, params, pipe, raw, voxel,
+                 ("decode_hadamard", "das_hercules"))
+
+
+def phase_main_uforces(dev) -> dict:
+    from ogl_beamforming_tpu_torch.models import presets
+    from ogl_beamforming_tpu_torch.ops import decode
+
+    params, pipe, sparse = presets.uforces_volumetric()
+    # mid-aperture, 3/8 of the way down the 5-45 mm depth range: voxel
+    # (64, 64, 47) of 128^3, x = 38.6 mm, y = 0.3 mm, z = 19.8 mm
+    nx, ny, nz = grid_shape(params)
+    voxel = (nx // 2, ny // 2, (nz - 1) * 3 // 8)
+    c, a = params.channel_count, params.acquisition_count
+    raw = synthesize_forces_frame(
+        c, a, params.sample_count, params.sampling_frequency,
+        params.speed_of_sound, float(params.xdc_element_pitch[0]),
+        target_world(params, voxel), params.demodulation_frequency,
+        decode.hadamard_matrix(a, "cpu").numpy(), elements=sparse)
+    return drive("main_uforces", dev, params, pipe, raw, voxel,
+                 ("decode_hadamard", "das_forces"), sparse=sparse)
+
+
+def phase_main_batch(dev) -> dict:
+    """Path E: the plane-wave headline, FRAME_BATCH frames per push_batch (a
+    warm-up batch, then RUNS batches, counts set to 0 just before and read
+    just after); the four-frame DAS launch must run once per batch and the
+    single-frame one never.  Each frame of the last batch must equal
+    push_data_with_compute of it to NRMSE 1e-6 and put its peak within one
+    voxel of the target; averaged_frame must equal the mean of the four."""
+    from ogl_beamforming_tpu_torch import DataKind
+    from ogl_beamforming_tpu_torch.kernels import build
+    from ogl_beamforming_tpu_torch.models import presets
+
+    params, pipe = presets.plane_wave_2d(data_kind=DataKind.Float32Complex)
+    voxel = (364, 199, 0)
+    one = synthesize_plane_wave_frame(
+        params.channel_count, params.sample_count, params.sampling_frequency,
+        params.speed_of_sound, float(params.xdc_element_pitch[0]),
+        target_world(params, voxel), params.demodulation_frequency)
+    noise = np.random.default_rng(5).standard_normal(
+        (FRAME_BATCH,) + one.shape).astype(np.float32) * 0.01
+    raw = one[None] * np.arange(1, FRAME_BATCH + 1, dtype=np.float32)[
+        :, None, None] + noise
+    bf = beamformer(dev, params, pipe.shaders, pipe.data_kind)
+    bf.push_batch(raw)
+    torch.cuda.synchronize()
+
+    build.LAUNCHES.clear()
+    wall = []
+    for _ in range(RUNS):
+        t0 = time.perf_counter()
+        frames = bf.push_batch(raw)
+        wall.append((time.perf_counter() - t0) * 1e3 / FRAME_BATCH)
+    launches = {k: build.LAUNCHES[k] for k in ("das_rca_fb4", "das_rca")}
+    check(launches == {"das_rca_fb4": RUNS, "das_rca": 0},
+          f"main_batch: launch counts {launches}, expected one four-frame "
+          f"launch in each of {RUNS} batches")
+
+    imgs = np.stack([f.to_numpy() for f in frames])
+    single = beamformer(dev, params, pipe.shaders, pipe.data_kind)
+    worst = 0.0
+    for b in range(FRAME_BATCH):
+        peak_check(f"main_batch frame {b}", imgs[b], voxel)
+        ref = single.push_data_with_compute(raw[b]).to_numpy()
+        worst = max(worst, nrmse(ref, imgs[b]))
+    check(worst <= 1e-6, f"main_batch: frame vs push_data_with_compute "
+          f"NRMSE {worst:.3e} > 1e-6")
+    avg = bf.averaged_frame(FRAME_BATCH).to_numpy()
+    avg_err = nrmse(imgs.mean(axis=0), avg)
+    check(avg_err <= 1e-6, f"main_batch: averaged_frame NRMSE {avg_err:.3e}")
+
+    # stats rows FRAME_BATCH.. hold the timed batches' frames
+    stage, split = stage_split(bf, FRAME_BATCH, RUNS * FRAME_BATCH)
+    print(f"[main_batch] {FRAME_BATCH} frames per push_batch: launches "
+          f"{launches}; each frame vs push_data_with_compute NRMSE "
+          f"<= {worst:.3e}; averaged_frame vs mean NRMSE {avg_err:.3e}; "
+          f"peaks within one voxel of {voxel}")
+    print(f"[main_batch] device ms/frame {float(stage.sum()):.3f} ({split}, "
+          f"median CUDA events over the batch / {FRAME_BATCH}); end to end "
+          f"incl. host prepare_rf + upload {statistics.median(wall):.3f} "
+          f"ms/frame (median host clock / {FRAME_BATCH})")
+    return launches
 
 
 def main() -> None:
     name, _ = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
-    rows = phase_kernels(dev)
+    rows = phase_kernels(dev) + phase_kernels_volumes(dev)
     fir_launches = phase_canary(dev)
     launches = phase_main(dev)
     launches.update(phase_main_rca(dev))
@@ -733,6 +1052,9 @@ def main() -> None:
     launches["demodulate"] = demod["demodulate"]
     launches["das_forces_iq"] = demod["das_forces"]
     launches["fir"] = fir_launches["fir"]
+    launches["das_hercules"] = phase_main_hercules(dev)["das_hercules"]
+    launches["das_forces_coh3d"] = phase_main_uforces(dev)["das_forces"]
+    launches["das_rca_fb4"] = phase_main_batch(dev)["das_rca_fb4"]
     for row in rows:
         row["launches"] = launches[row["name"]]
         check(row["launches"] > 0, f"{row['name']} never launched on its path")

@@ -1,6 +1,6 @@
-// FORCES- and RCA-family delay-and-sum for Hopper (sm_90a).
+// FORCES-, HERCULES- and RCA-family delay-and-sum for Hopper (sm_90a).
 //
-// das_forces replaces the `forces` branch of the TPU kernel
+// das_forces_kernel replaces the `forces` branch of the TPU kernel
 // ogl_beamforming_tpu/ops/das_pallas.py::_das_kernel (pallas_call in
 // _das_call; delays from _forces_delay, taps from _interp_weights):
 // FORCES, UFORCES (sparse transmits) and READI (grouped transmits with a
@@ -34,9 +34,40 @@
 // IEEE; nearest rounds half to even (rintf); cosf/sincosf are the full-range
 // library functions (no --use_fast_math).
 //
-// das_rca replaces the `rca` branch of the same TPU kernel (delays from
-// _rca_delay, tables from _prep_scalars): Flash, RCA_TPW and RCA_VLS, with a
-// per-acquisition orientation byte and focal vector.
+// das_hercules_kernel replaces the `hercules` branch of the same TPU kernel
+// (delays from _hercules_delay, per-tile terms from _hercules_tile_terms,
+// distances from _hercules_rx_d2 and _hercules_tx_d2): HERCULES, UHERCULES
+// (sparse transmits, acquisition 0 skipped) and HERO_PA, every
+// interpolation mode, real or IQ, optionally with the incoherent sum.
+//
+//   out[v] = sum_c sum_j w_j * cos^2(pi |f#/z| sqrt(d2)) * interp(rf[c, row_j], idx)
+//   d2     = (lat_rx - ch * p_rx)^2 + (lat_tx - pos_j)^2,  kept where d2 < z^2 / (4 f#^2)
+//   idx    = (tx0(v) / c_0 + t_0) * fs  +  sqrt(z^2 + d2) * fs / c_0
+//
+// with tx0 acquisition 0's plane or cylindrical transmit distance of the
+// world point, and (lat_rx, lat_tx) the (x, y) of the XDC-space point when
+// receiving on columns, (y, x) otherwise.  It follows the XLA path
+// (ops/das.py::_hercules_block), not the Pallas kernel's u-form apodization;
+// the per-transmit table comes from the twin's own ops/das.py::
+// transmit_tables and acquisition 0's transmit geometry from its rca_tables.
+//
+// What bounds it on this card: the apodization is 2D, so a cosine, two IEEE
+// square roots and the interpolation are paid per (voxel, channel, transmit)
+// triple inside the mask, not per (voxel, channel) as for FORCES.  HERCULES
+// 96^3 at 128 x 128 is 14.5 G candidate triples: operations, not bytes (the
+// decoded 128 MiB frame streams through L2, each channel's 1 MiB swept by
+// every voxel block).
+//
+// What the design does about it: das_forces_kernel's skeleton, one thread per
+// voxel in C order, the per-transmit table (lateral position, weight, rf row)
+// in shared memory; acquisition 0's transmit index, |f#/z| and the mask
+// radius once per voxel; a channel whose receive distance alone fails the
+// mask is skipped before its transmit loop (d2 >= rx_d2, so no transmit can
+// pass it then).
+//
+// das_rca_kernel replaces the `rca` branch of the same TPU kernel (delays
+// from _rca_delay, tables from _prep_scalars): Flash, RCA_TPW and RCA_VLS,
+// with a per-acquisition orientation byte and focal vector.
 //
 //   out[v] = sum_a sum_c apod(v, a, c) * interp(rf[c, a], idx(v, a, c))
 //   idx    = ((tx(v, a) + |recv(v, a, c)|) / c_0 + t_0) * fs
@@ -62,8 +93,16 @@
 // sits in shared memory, the transmit distance is computed once per
 // (voxel, acquisition), and channels outside the apodization mask are
 // skipped.
+//
+// Frame batches (the frame_batch of das_pallas): each kernel takes FB frames
+// per launch, a template parameter of 1 or 4; rf is (FB, channels, rf_rows,
+// S) and the output (FB, nx, ny, nz).  A pair's geometry -- index, mask,
+// apodization, interpolation taps and IQ rotation -- is computed once and
+// applied to all FB frames, each gathered and summed on its own in the
+// single-frame order, so a frame of a batch equals a single-frame launch on
+// it.  The kernels are bound by operations, not bytes, so the shared
+// geometry is what a batch saves (the Pallas kernel's fb_pack form).
 
-#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
@@ -78,14 +117,16 @@ enum Scalar {
 
 // Columns of the RCA acquisition table (ops/das.py::rca_tables)
 enum RcaColumn { kTxO = 0, kRxO, kSin, kCos, kFLat, kFZ, kPlane, kRcaWidth = 8 };
-constexpr float kRows = 1.f;           // RCAOrientation.Rows
 constexpr float kNoOrientation = 0.f;  // RCAOrientation.NoOrientation
+constexpr float kRows = 1.f;           // RCAOrientation.Rows
+constexpr float kColumns = 2.f;        // RCAOrientation.Columns
 
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kTwoPi = 6.28318530717958647692f;
 constexpr int kBlock = 128;
 
 enum Mode { kNearest = 0, kLinear = 1, kCubic = 2 };
+enum Family { kForces = 0, kHercules = 1, kRca = 2 };  // ops/das_cuda.py::_FAMILY
 
 template <bool IQ> struct Sample;
 template <> struct Sample<false> {
@@ -111,36 +152,59 @@ __device__ __forceinline__ float2 sub(float2 a, float2 b) {
 }
 __device__ __forceinline__ float magnitude(float v) { return fabsf(v); }
 __device__ __forceinline__ float magnitude(float2 v) { return hypotf(v.x, v.y); }
+__device__ __forceinline__ float rotate(float v, float, float) { return v; }
+__device__ __forceinline__ float2 rotate(float2 v, float sn, float cs) {
+  return make_float2(v.x * cs - v.y * sn, v.x * sn + v.y * cs);
+}
 
-// Interpolate `line` at fractional `index`; false when outside the mode's
-// validity window (das.glsl:64-122; JAX ops/das.py:_interpolate).
-template <int MODE, typename T>
-__device__ __forceinline__ bool interpolate(const T* __restrict__ line, int S,
-                                            float index, T& val) {
+// Interpolation taps at a fractional sample index: the first sample and the
+// weights, shared by every frame of a batch.
+struct Taps {
+  int i;
+  float c0, c1, c2, c3;
+};
+
+// The taps of `index`; false when outside the mode's validity window
+// (das.glsl:64-122; JAX ops/das.py:_interpolate).
+template <int MODE>
+__device__ __forceinline__ bool make_taps(int S, float index, Taps& tp) {
   if (MODE == kNearest) {
     const float r = rintf(index);
     if (!(floorf(index) >= 0.f && r < (float)S)) return false;
-    val = __ldg(line + (int)r);
+    tp.i = (int)r;
     return true;
   }
   const float k = floorf(index);
   const float t = index - k;
   if (MODE == kLinear) {
     if (!(k >= 0.f && k < (float)(S - 1))) return false;
-    const int i = (int)k;
-    val = add(scale(1.f - t, __ldg(line + i)), scale(t, __ldg(line + i + 1)));
+    tp.i = (int)k;
+    tp.c0 = 1.f - t;
+    tp.c1 = t;
     return true;
   }
   if (!(k > 0.f && k < (float)(S - 2))) return false;
-  const int i = (int)k;
-  const T p0 = __ldg(line + i - 1), p1 = __ldg(line + i);
-  const T p2 = __ldg(line + i + 1), p3 = __ldg(line + i + 2);
+  tp.i = (int)k;
+  const float tt = t * t, ttt = tt * t;   // Catmull-Rom, C_SPLINE = 0.5
+  tp.c0 = 2.f * ttt - 3.f * tt + 1.f;
+  tp.c1 = -2.f * ttt + 3.f * tt;
+  tp.c2 = ttt - 2.f * tt + t;
+  tp.c3 = ttt - tt;
+  return true;
+}
+
+// The sample of `line` at the taps.
+template <int MODE, typename T>
+__device__ __forceinline__ T gather(const T* __restrict__ line, const Taps& tp) {
+  if (MODE == kNearest) return __ldg(line + tp.i);
+  if (MODE == kLinear)
+    return add(scale(tp.c0, __ldg(line + tp.i)), scale(tp.c1, __ldg(line + tp.i + 1)));
+  const T p0 = __ldg(line + tp.i - 1), p1 = __ldg(line + tp.i);
+  const T p2 = __ldg(line + tp.i + 1), p3 = __ldg(line + tp.i + 2);
   const T t1 = scale(0.5f, sub(p2, p0));
   const T t2 = scale(0.5f, sub(p3, p1));
-  const float tt = t * t, ttt = tt * t;
-  val = add(add(scale(2.f * ttt - 3.f * tt + 1.f, p1), scale(-2.f * ttt + 3.f * tt, p2)),
-            add(scale(ttt - 2.f * tt + t, t1), scale(ttt - tt, t2)));
-  return true;
+  return add(add(scale(tp.c0, p1), scale(tp.c1, p2)),
+             add(scale(tp.c2, t1), scale(tp.c3, t2)));
 }
 
 // Rows 0..2 of the 4x4 row-major matrix `m` applied to (x, y, z, 1), each
@@ -155,50 +219,129 @@ __device__ __forceinline__ void apply_m4(const float* m, float x, float y,
   }
 }
 
+// Plane-wave or cylindrical transmit distance of the world point `w` for one
+// row `t` of the RCA table (JAX ops/das.py:_rca_transmit_distance).
+__device__ __forceinline__ float rca_tx_distance(const float* t, const float w[3]) {
+  if (t[kTxO] == kNoOrientation) return 0.f;
+  const float lat = t[kTxO] == kRows ? w[1] : w[0];
+  if (t[kPlane] > 0.5f) return __fadd_rn(__fmul_rn(lat, t[kSin]), __fmul_rn(w[2], t[kCos]));
+  const float d_lat = __fsub_rn(lat, t[kFLat]);
+  const float d_z = __fsub_rn(w[2], t[kFZ]);
+  return __fsqrt_rn(__fadd_rn(__fmul_rn(d_lat, d_lat), __fmul_rn(d_z, d_z)));
+}
+
 // Arguments of one launch, as the C entry point receives them.
 struct Args {
-  const void* rf;          // (channels, rf_rows, S) float or float2
+  const void* rf;          // (FB, channels, rf_rows, S) float or float2
   const float* sc;         // Scalar layout above
-  const float* tx_pos;     // (n_tx,) transmit element x positions
+  const float* tab;        // RCA table (acquisitions, kRcaWidth); HERCULES reads row 0
+  const float* tx_pos;     // (n_tx,) transmit lateral positions (FORCES, HERCULES)
   const float* tx_weight;  // (n_tx,) transmit weights
   const int* tx_row;       // (n_tx,) rf acquisition of each transmit
-  void* out;               // (nx, ny, nz) float or float2
-  float* inco;             // (nx, ny, nz) incoherent sum, or null
-  int channels, channel_count, rf_rows, S, n_tx;
+  void* out;               // (FB, nx, ny, nz) float or float2
+  float* inco;             // (FB, nx, ny, nz) incoherent sums, or null
+  int channels, channel_count, rf_rows, S;
+  int n_tx;                // transmits (FORCES, HERCULES) or acquisitions (RCA)
   int nx, ny, nz, gnx, gny, gnz;
 };
 
-template <int MODE, bool IQ, bool COH>
+// World point of voxel `v` (C order over nx, ny, nz) of a slab starting at
+// x offset sc[kX0] of the global grid (JAX ops/das.py:_world_points).
+__device__ __forceinline__ void world_point(const Args& a, int v, float w[3]) {
+  const int iz = v % a.nz, iy = (v / a.nz) % a.ny, ix = v / (a.nz * a.ny);
+  const float* sc = a.sc;
+  const float gx = __fdiv_rn(__fadd_rn((float)ix, sc[kX0]), fmaxf((float)a.gnx - 1.f, 1.f));
+  const float gy = __fdiv_rn((float)iy, fmaxf((float)a.gny - 1.f, 1.f));
+  const float gz = __fdiv_rn((float)iz, fmaxf((float)a.gnz - 1.f, 1.f));
+  apply_m4(sc + kVT, gx, gy, gz, w);
+}
+
+// Per-frame sums of one thread: a channel's (or acquisition's) part, added
+// into the frame's total when the channel ends, as the twin sums.
+template <bool IQ, bool COH, int FB>
+struct Sums {
+  using T = typename Sample<IQ>::type;
+  T v[FB];
+  float inco[FB];
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int f = 0; f < FB; ++f) {
+      v[f] = Sample<IQ>::zero();
+      inco[f] = 0.f;
+    }
+  }
+  // One pair: frame f's sample at the shared taps, rotated and weighted.
+  template <int MODE>
+  __device__ __forceinline__ void pair(const T* __restrict__ line, size_t frame,
+                                       const Taps& tp, float sn, float cs, float weight) {
+#pragma unroll
+    for (int f = 0; f < FB; ++f) {
+      T val = scale(weight, rotate(gather<MODE>(line + f * frame, tp), sn, cs));
+      v[f] = add(v[f], val);
+      if (COH) inco[f] += magnitude(val);
+    }
+  }
+  __device__ __forceinline__ void flush_into(Sums& total) const {
+#pragma unroll
+    for (int f = 0; f < FB; ++f) {
+      total.v[f] = add(total.v[f], v[f]);
+      if (COH) total.inco[f] += inco[f];
+    }
+  }
+  __device__ __forceinline__ void store(const Args& a, int v_index) const {
+    const size_t voxels = (size_t)a.nx * a.ny * a.nz;
+#pragma unroll
+    for (int f = 0; f < FB; ++f) {
+      static_cast<T*>(a.out)[f * voxels + v_index] = v[f];
+      if (COH) a.inco[f * voxels + v_index] = inco[f];
+    }
+  }
+};
+
+// The IQ rotation exp(+j 2 pi f_d index / fs) of a pair, (sin, cos); the
+// identity for real data.
+template <bool IQ>
+__device__ __forceinline__ void phase(float two_pi_fd, float index, float fs,
+                                      float& sn, float& cs) {
+  sn = 0.f;
+  cs = 1.f;
+  if constexpr (IQ) sincosf(__fmul_rn(two_pi_fd, __fdiv_rn(index, fs)), &sn, &cs);
+}
+
+// Per-transmit table of FORCES and HERCULES into shared memory.
+__device__ __forceinline__ void load_tx_table(const Args& a, float* s_pos,
+                                              float* s_w, int* s_row) {
+  for (int j = threadIdx.x; j < a.n_tx; j += blockDim.x) {
+    s_pos[j] = a.tx_pos[j];
+    s_w[j] = a.tx_weight[j];
+    s_row[j] = a.tx_row[j];
+  }
+  __syncthreads();
+}
+
+template <int MODE, bool IQ, bool COH, int FB>
 __global__ void __launch_bounds__(kBlock) das_forces_kernel(const Args args) {
   using T = typename Sample<IQ>::type;
   const T* __restrict__ rf = static_cast<const T*>(args.rf);
   const float* __restrict__ sc = args.sc;
   const int channels = args.channels, rf_rows = args.rf_rows, S = args.S;
-  const int n_tx = args.n_tx, nx = args.nx, ny = args.ny, nz = args.nz;
+  const int n_tx = args.n_tx;
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_pos = reinterpret_cast<float*>(smem);
   float* s_w = s_pos + n_tx;
   int* s_row = reinterpret_cast<int*>(s_w + n_tx);
-  for (int j = threadIdx.x; j < n_tx; j += blockDim.x) {
-    s_pos[j] = args.tx_pos[j];
-    s_w[j] = args.tx_weight[j];
-    s_row[j] = args.tx_row[j];
-  }
-  __syncthreads();
+  load_tx_table(args, s_pos, s_w, s_row);
 
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= nx * ny * nz) return;
-  const int iz = v % nz, iy = (v / nz) % ny, ix = v / (nz * ny);
+  if (v >= args.nx * args.ny * args.nz) return;
+  const size_t frame = (size_t)channels * rf_rows * S;
 
   const float fs = sc[kFs], sos = sc[kSos], t0 = sc[kT0], fnum = sc[kFnum];
   const float px = sc[kPx], py = sc[kPy], fd = sc[kFd], ch0 = sc[kCh0];
 
   // World point, XDC space (JAX ops/das.py:_world_points/_apply_m4).
-  const float gx = __fdiv_rn(__fadd_rn((float)ix, sc[kX0]), fmaxf((float)args.gnx - 1.f, 1.f));
-  const float gy = __fdiv_rn((float)iy, fmaxf((float)args.gny - 1.f, 1.f));
-  const float gz = __fdiv_rn((float)iz, fmaxf((float)args.gnz - 1.f, 1.f));
   float w[3];
-  apply_m4(sc + kVT, gx, gy, gz, w);
+  world_point(args, v, w);
   const float x = w[0], y = w[1], z = w[2];
   const float z2 = __fmul_rn(z, z);
   const float ty = __fsub_rn(y, __fmul_rn(py, 0.5f * (float)args.channel_count));
@@ -206,8 +349,8 @@ __global__ void __launch_bounds__(kBlock) das_forces_kernel(const Args args) {
   const float fs_over_c = __fdiv_rn(fs, sos);
   const float two_pi_fd = __fmul_rn(kTwoPi, fd);
 
-  T acc = Sample<IQ>::zero();
-  float acc_inco = 0.f;
+  Sums<IQ, COH, FB> acc, part;
+  acc.clear();
   for (int c = 0; c < channels; ++c) {
     const float ch = __fadd_rn(ch0, (float)c);
     const float rx_dx = __fsub_rn(x, __fmul_rn(ch, px));
@@ -219,48 +362,99 @@ __global__ void __launch_bounds__(kBlock) das_forces_kernel(const Args args) {
         __fadd_rn(__fdiv_rn(__fsqrt_rn(__fadd_rn(__fmul_rn(rx_dx, rx_dx), z2)), sos), t0), fs);
     const T* rf_c = rf + (size_t)c * rf_rows * S;
 
-    T part = Sample<IQ>::zero();
-    float part_inco = 0.f;
+    part.clear();
     for (int j = 0; j < n_tx; ++j) {
       const float tx_dx = __fsub_rn(x, s_pos[j]);
       const float tx_index =
           __fmul_rn(__fsqrt_rn(__fadd_rn(t_yz2, __fmul_rn(tx_dx, tx_dx))), fs_over_c);
       const float index = __fadd_rn(rx_index, tx_index);
-      T val;
-      if (!interpolate<MODE>(rf_c + (size_t)s_row[j] * S, S, index, val)) continue;
-      if constexpr (IQ) {
-        float sn, cs;
-        sincosf(__fmul_rn(two_pi_fd, __fdiv_rn(index, fs)), &sn, &cs);
-        val = make_float2(val.x * cs - val.y * sn, val.x * sn + val.y * cs);
-      }
-      val = scale(__fmul_rn(apod, s_w[j]), val);
-      part = add(part, val);
-      if (COH) part_inco += magnitude(val);
+      Taps tp;
+      if (!make_taps<MODE>(S, index, tp)) continue;
+      float sn, cs;
+      phase<IQ>(two_pi_fd, index, fs, sn, cs);
+      part.template pair<MODE>(rf_c + (size_t)s_row[j] * S, frame, tp, sn, cs,
+                               __fmul_rn(apod, s_w[j]));
     }
-    acc = add(acc, part);
-    if (COH) acc_inco += part_inco;
+    part.flush_into(acc);
   }
-  static_cast<T*>(args.out)[v] = acc;
-  if (COH) args.inco[v] = acc_inco;
+  acc.store(args, v);
 }
 
-// Arguments of one RCA launch.
-struct RcaArgs {
-  const void* rf;          // (channels, rf_rows, S) float or float2
-  const float* sc;         // Scalar layout above
-  const float* tab;        // (acquisitions, kRcaWidth) RcaColumn layout
-  void* out;               // (nx, ny, nz) float or float2
-  float* inco;             // (nx, ny, nz) incoherent sum, or null
-  int channels, rf_rows, acquisitions, S;
-  int nx, ny, nz, gnx, gny, gnz;
-};
-
-template <int MODE, bool IQ, bool COH>
-__global__ void __launch_bounds__(kBlock) das_rca_kernel(const RcaArgs args) {
+template <int MODE, bool IQ, bool COH, int FB>
+__global__ void __launch_bounds__(kBlock) das_hercules_kernel(const Args args) {
   using T = typename Sample<IQ>::type;
   const T* __restrict__ rf = static_cast<const T*>(args.rf);
   const float* __restrict__ sc = args.sc;
-  const int channels = args.channels, S = args.S, A = args.acquisitions;
+  const int channels = args.channels, rf_rows = args.rf_rows, S = args.S;
+  const int n_tx = args.n_tx;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_pos = reinterpret_cast<float*>(smem);
+  float* s_w = s_pos + n_tx;
+  int* s_row = reinterpret_cast<int*>(s_w + n_tx);
+  load_tx_table(args, s_pos, s_w, s_row);
+
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= args.nx * args.ny * args.nz) return;
+  const size_t frame = (size_t)channels * rf_rows * S;
+
+  const float fs = sc[kFs], sos = sc[kSos], t0 = sc[kT0], fnum = sc[kFnum];
+  const float px = sc[kPx], py = sc[kPy], fd = sc[kFd], ch0 = sc[kCh0];
+
+  // World point, its XDC-space image and acquisition 0's transmit index
+  // (JAX ops/das.py:_hercules_block).
+  float w[3], xdc[3];
+  world_point(args, v, w);
+  apply_m4(sc + kXdc, w[0], w[1], w[2], xdc);
+  float t[kRcaWidth];
+#pragma unroll
+  for (int i = 0; i < kRcaWidth; ++i) t[i] = __ldg(args.tab + i);
+  const float tx_index =
+      __fmul_rn(__fadd_rn(__fdiv_rn(rca_tx_distance(t, w), sos), t0), fs);
+  const float z = xdc[2];
+  const float z2 = __fmul_rn(z, z);
+  const float fnum_over_z = fabsf(__fdiv_rn(fnum, z));
+  const float apod_test = __fdiv_rn(0.25f, __fmul_rn(fnum_over_z, fnum_over_z));
+  const bool rx_cols = t[kRxO] == kColumns;
+  const float rx_lat = rx_cols ? xdc[0] : xdc[1];
+  const float tx_lat = rx_cols ? xdc[1] : xdc[0];
+  const float rx_pitch = rx_cols ? px : py;
+  const float fs_over_c = __fdiv_rn(fs, sos);
+  const float two_pi_fd = __fmul_rn(kTwoPi, fd);
+
+  Sums<IQ, COH, FB> acc, part;
+  acc.clear();
+  for (int c = 0; c < channels; ++c) {
+    const float rx_dd = __fsub_rn(rx_lat, __fmul_rn(__fadd_rn(ch0, (float)c), rx_pitch));
+    const float rx_d2 = __fmul_rn(rx_dd, rx_dd);
+    if (!(rx_d2 < apod_test)) continue;   // d2 >= rx_d2: no transmit passes
+    const T* rf_c = rf + (size_t)c * rf_rows * S;
+
+    part.clear();
+    for (int j = 0; j < n_tx; ++j) {
+      const float tx_dd = __fsub_rn(tx_lat, s_pos[j]);
+      const float d2 = __fadd_rn(rx_d2, __fmul_rn(tx_dd, tx_dd));
+      if (!(d2 < apod_test)) continue;              // 2D apodization mask
+      const float ca = cosf(__fmul_rn(kPi, __fmul_rn(fnum_over_z, __fsqrt_rn(d2))));
+      const float apod = __fmul_rn(s_w[j], __fmul_rn(ca, ca));
+      const float index =
+          __fadd_rn(tx_index, __fmul_rn(__fsqrt_rn(__fadd_rn(z2, d2)), fs_over_c));
+      Taps tp;
+      if (!make_taps<MODE>(S, index, tp)) continue;
+      float sn, cs;
+      phase<IQ>(two_pi_fd, index, fs, sn, cs);
+      part.template pair<MODE>(rf_c + (size_t)s_row[j] * S, frame, tp, sn, cs, apod);
+    }
+    part.flush_into(acc);
+  }
+  acc.store(args, v);
+}
+
+template <int MODE, bool IQ, bool COH, int FB>
+__global__ void __launch_bounds__(kBlock) das_rca_kernel(const Args args) {
+  using T = typename Sample<IQ>::type;
+  const T* __restrict__ rf = static_cast<const T*>(args.rf);
+  const float* __restrict__ sc = args.sc;
+  const int channels = args.channels, S = args.S, A = args.n_tx;
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_tab = reinterpret_cast<float*>(smem);
   for (int i = threadIdx.x; i < A * kRcaWidth; i += blockDim.x) s_tab[i] = args.tab[i];
@@ -268,46 +462,31 @@ __global__ void __launch_bounds__(kBlock) das_rca_kernel(const RcaArgs args) {
 
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= args.nx * args.ny * args.nz) return;
-  const int iz = v % args.nz, iy = (v / args.nz) % args.ny, ix = v / (args.nz * args.ny);
+  const size_t frame = (size_t)channels * args.rf_rows * S;
 
   const float fs = sc[kFs], sos = sc[kSos], t0 = sc[kT0], fnum = sc[kFnum];
   const float px = sc[kPx], py = sc[kPy], fd = sc[kFd], ch0 = sc[kCh0];
 
   // World point (JAX ops/das.py:_world_points) and its XDC-space image.
-  const float gx = __fdiv_rn(__fadd_rn((float)ix, sc[kX0]), fmaxf((float)args.gnx - 1.f, 1.f));
-  const float gy = __fdiv_rn((float)iy, fmaxf((float)args.gny - 1.f, 1.f));
-  const float gz = __fdiv_rn((float)iz, fmaxf((float)args.gnz - 1.f, 1.f));
   float w[3], xdc[3];
-  apply_m4(sc + kVT, gx, gy, gz, w);
+  world_point(args, v, w);
   apply_m4(sc + kXdc, w[0], w[1], w[2], xdc);
   const float z = xdc[2];
   const float abs_z = fabsf(z);
   const float z2 = __fmul_rn(z, z);
   const float two_pi_fd = __fmul_rn(kTwoPi, fd);
 
-  T acc = Sample<IQ>::zero();
-  float acc_inco = 0.f;
+  Sums<IQ, COH, FB> acc, part;
+  acc.clear();
   for (int a = 0; a < A; ++a) {
     const float* t = s_tab + a * kRcaWidth;
-    // Transmit distance (JAX ops/das.py:_rca_transmit_distance).
-    const float tlat = t[kTxO] == kRows ? w[1] : w[0];
-    float tx_dist;
-    if (t[kTxO] == kNoOrientation) {
-      tx_dist = 0.f;
-    } else if (t[kPlane] > 0.5f) {
-      tx_dist = __fadd_rn(__fmul_rn(tlat, t[kSin]), __fmul_rn(w[2], t[kCos]));
-    } else {
-      const float d_lat = __fsub_rn(tlat, t[kFLat]);
-      const float d_z = __fsub_rn(w[2], t[kFZ]);
-      tx_dist = __fsqrt_rn(__fadd_rn(__fmul_rn(d_lat, d_lat), __fmul_rn(d_z, d_z)));
-    }
+    const float tx_dist = rca_tx_distance(t, w);
     const bool rx_rows = t[kRxO] == kRows;
     const float lat = rx_rows ? xdc[1] : xdc[0];
     const float pitch = rx_rows ? py : px;
     const T* rf_a = rf + (size_t)a * S;
 
-    T part = Sample<IQ>::zero();
-    float part_inco = 0.f;
+    part.clear();
     for (int c = 0; c < channels; ++c) {
       const float recv_lat = __fsub_rn(lat, __fmul_rn(__fadd_rn(ch0, (float)c), pitch));
       const float a_arg = fabsf(__fdiv_rn(__fmul_rn(fnum, recv_lat), abs_z));
@@ -316,27 +495,20 @@ __global__ void __launch_bounds__(kBlock) das_rca_kernel(const RcaArgs args) {
       const float apod = __fmul_rn(ca, ca);
       const float rlen = __fsqrt_rn(__fadd_rn(__fmul_rn(recv_lat, recv_lat), z2));
       const float index = __fmul_rn(__fadd_rn(__fdiv_rn(__fadd_rn(tx_dist, rlen), sos), t0), fs);
-      T val;
-      if (!interpolate<MODE>(rf_a + (size_t)c * args.rf_rows * S, S, index, val)) continue;
-      if constexpr (IQ) {
-        float sn, cs;
-        sincosf(__fmul_rn(two_pi_fd, __fdiv_rn(index, fs)), &sn, &cs);
-        val = make_float2(val.x * cs - val.y * sn, val.x * sn + val.y * cs);
-      }
-      val = scale(apod, val);
-      part = add(part, val);
-      if (COH) part_inco += magnitude(val);
+      Taps tp;
+      if (!make_taps<MODE>(S, index, tp)) continue;
+      float sn, cs;
+      phase<IQ>(two_pi_fd, index, fs, sn, cs);
+      part.template pair<MODE>(rf_a + (size_t)c * args.rf_rows * S, frame, tp, sn, cs, apod);
     }
-    acc = add(acc, part);
-    if (COH) acc_inco += part_inco;
+    part.flush_into(acc);
   }
-  static_cast<T*>(args.out)[v] = acc;
-  if (COH) args.inco[v] = acc_inco;
+  acc.store(args, v);
 }
 
 // One thread per voxel, `smem` bytes of tables per block.
-template <typename Kernel, typename ArgsT>
-int launch_voxels(Kernel kernel, const ArgsT& args, size_t smem, cudaStream_t stream) {
+template <typename Kernel>
+int launch_voxels(Kernel kernel, const Args& args, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -347,62 +519,68 @@ int launch_voxels(Kernel kernel, const ArgsT& args, size_t smem, cudaStream_t st
   return (int)cudaGetLastError();
 }
 
-template <int MODE, bool IQ, bool COH>
+template <int FAMILY, int MODE, bool IQ, bool COH, int FB>
 int launch(const Args& args, cudaStream_t stream) {
-  return launch_voxels(das_forces_kernel<MODE, IQ, COH>, args,
-                       (size_t)args.n_tx * (2 * sizeof(float) + sizeof(int)), stream);
+  const size_t tx_table = (size_t)args.n_tx * (2 * sizeof(float) + sizeof(int));
+  if constexpr (FAMILY == kForces)
+    return launch_voxels(das_forces_kernel<MODE, IQ, COH, FB>, args, tx_table, stream);
+  else if constexpr (FAMILY == kHercules)
+    return launch_voxels(das_hercules_kernel<MODE, IQ, COH, FB>, args, tx_table, stream);
+  else
+    return launch_voxels(das_rca_kernel<MODE, IQ, COH, FB>, args,
+                         (size_t)args.n_tx * kRcaWidth * sizeof(float), stream);
 }
 
-template <int MODE, bool IQ, bool COH>
-int launch(const RcaArgs& args, cudaStream_t stream) {
-  return launch_voxels(das_rca_kernel<MODE, IQ, COH>, args,
-                       (size_t)args.acquisitions * kRcaWidth * sizeof(float), stream);
+template <int FAMILY, int MODE, bool IQ, bool COH>
+int launch_fb(const Args& args, int fb, cudaStream_t s) {
+  switch (fb) {
+    case 1: return launch<FAMILY, MODE, IQ, COH, 1>(args, s);
+    case 4: return launch<FAMILY, MODE, IQ, COH, 4>(args, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-template <int MODE, typename ArgsT>
-int launch_mode(const ArgsT& args, bool iq, bool coh, cudaStream_t stream) {
+template <int FAMILY, int MODE>
+int launch_mode(const Args& args, bool iq, bool coh, int fb, cudaStream_t s) {
   if (iq)
-    return coh ? launch<MODE, true, true>(args, stream)
-               : launch<MODE, true, false>(args, stream);
-  return coh ? launch<MODE, false, true>(args, stream)
-             : launch<MODE, false, false>(args, stream);
+    return coh ? launch_fb<FAMILY, MODE, true, true>(args, fb, s)
+               : launch_fb<FAMILY, MODE, true, false>(args, fb, s);
+  return coh ? launch_fb<FAMILY, MODE, false, true>(args, fb, s)
+             : launch_fb<FAMILY, MODE, false, false>(args, fb, s);
 }
 
-template <typename ArgsT>
-int launch_any(const ArgsT& args, int mode, bool iq, bool coh, cudaStream_t s) {
+template <int FAMILY>
+int launch_family(const Args& args, int mode, bool iq, bool coh, int fb, cudaStream_t s) {
   switch (mode) {
-    case kNearest: return launch_mode<kNearest>(args, iq, coh, s);
-    case kLinear: return launch_mode<kLinear>(args, iq, coh, s);
-    case kCubic: return launch_mode<kCubic>(args, iq, coh, s);
+    case kNearest: return launch_mode<FAMILY, kNearest>(args, iq, coh, fb, s);
+    case kLinear: return launch_mode<FAMILY, kLinear>(args, iq, coh, fb, s);
+    case kCubic: return launch_mode<FAMILY, kCubic>(args, iq, coh, fb, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-extern "C" int das_forces(const void* rf, const void* sc, const void* tx_pos,
+// One DAS launch of `fb` frames (1 or 4) of `family` (Family above).
+extern "C" int das_launch(int family, const void* rf, const void* sc,
+                          const void* tab, const void* tx_pos,
                           const void* tx_weight, const void* tx_row, void* out,
                           void* inco, int channels, int channel_count,
                           int rf_rows, int S, int n_tx, int nx, int ny, int nz,
                           int gnx, int gny, int gnz, int mode, int iq, int coh,
-                          void* stream) {
+                          int fb, void* stream) {
   const Args args{rf, static_cast<const float*>(sc),
+                  static_cast<const float*>(tab),
                   static_cast<const float*>(tx_pos),
                   static_cast<const float*>(tx_weight),
                   static_cast<const int*>(tx_row), out,
                   static_cast<float*>(inco), channels, channel_count, rf_rows,
                   S, n_tx, nx, ny, nz, gnx, gny, gnz};
-  return launch_any(args, mode, iq, coh, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int das_rca(const void* rf, const void* sc, const void* tab,
-                       void* out, void* inco, int channels, int rf_rows,
-                       int acquisitions, int S, int nx, int ny, int nz,
-                       int gnx, int gny, int gnz, int mode, int iq, int coh,
-                       void* stream) {
-  const RcaArgs args{rf, static_cast<const float*>(sc),
-                     static_cast<const float*>(tab), out,
-                     static_cast<float*>(inco), channels, rf_rows,
-                     acquisitions, S, nx, ny, nz, gnx, gny, gnz};
-  return launch_any(args, mode, iq, coh, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (family) {
+    case kForces: return launch_family<kForces>(args, mode, iq, coh, fb, s);
+    case kHercules: return launch_family<kHercules>(args, mode, iq, coh, fb, s);
+    case kRca: return launch_family<kRca>(args, mode, iq, coh, fb, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

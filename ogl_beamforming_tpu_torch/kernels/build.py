@@ -33,7 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES: collections.Counter = collections.Counter()
 """Kernel launches in this process by kernel name: ``decode_hadamard``,
-``das_forces``, ``das_rca``, ``demodulate``, ``fir``."""
+``das_forces``, ``das_hercules``, ``das_rca`` (and ``das_*_fb4``, a launch
+of four frames of a batch), ``demodulate``, ``fir``."""
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,18 +46,12 @@ SIGNATURES = {
     # rf, h (int8 A x A), out, C, A, S, scale, stream
     "decode_int16": [_P, _P, _P, _I, _I, _I, _F, _P],
     "decode_f32": [_P, _P, _P, _I, _I, _I, _F, _P],
-    # rf, scalars, tx_pos, tx_weight, tx_row, out, inco,
+    # family, rf, scalars, RCA table, tx_pos, tx_weight, tx_row, out, inco,
     # channels, channel_count, rf_rows, samples, n_tx,
-    # nx, ny, nz, gnx, gny, gnz, mode, iq, coherency, stream
-    "das_forces": [_P, _P, _P, _P, _P, _P, _P,
+    # nx, ny, nz, gnx, gny, gnz, mode, iq, coherency, frames, stream
+    "das_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I,
-                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # rf, scalars, acquisition table (A x 8), out, inco,
-    # channels, rf_rows, acquisitions, samples,
-    # nx, ny, nz, gnx, gny, gnz, mode, iq, coherency, stream
-    "das_rca": [_P, _P, _P, _P, _P,
-                _I, _I, _I, _I,
-                _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, omega (device float), taps (re | im), out,
     # rows, S_in, n_out, L, D, int16 input, complex taps, scale, stream
     "demodulate": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],

@@ -5,11 +5,13 @@ JAX package's exact-f32 XLA path (``ops/das.py``); :func:`das` dispatches on
 the RF tensor's device: a CPU tensor takes the twin, a CUDA tensor takes the
 hand-written kernel (``ops/das_cuda.py`` -> ``csrc/das.cu``) or raises.
 
-Ported families: FORCES, UFORCES (sparse) and READI-grouped FORCES, and the
-RCA family (Flash, RCA_TPW, RCA_VLS: per-acquisition orientation and focal
-vector, plane or cylindrical transmit), in every interpolation mode, real
-and IQ, with or without the coherency output.  HERCULES raises
-``NotImplementedError`` (queued in ROADMAP.md), as do frame batches.
+Every DAS family of the JAX package: FORCES, UFORCES (sparse) and
+READI-grouped FORCES; HERCULES, UHERCULES (sparse) and HERO_PA (a 2D
+apodization over the transmit x receive element grid, with acquisition 0's
+plane or cylindrical transmit); and the RCA family (Flash, RCA_TPW, RCA_VLS:
+per-acquisition orientation and focal vector, plane or cylindrical
+transmit), in every interpolation mode, real and IQ, with or without the
+coherency output, one frame (C, A, S) or a batch of frames (B, C, A, S).
 
 Constants that the JAX code multiplies in (pi, 2*pi, pi/180) are the
 float32 values JAX would use, so the twin's arithmetic is the JAX package's,
@@ -114,17 +116,6 @@ def make_static(p: DasParams, iq: bool) -> DasStatic:
         readi_group_count=int(p.readi_group_count),
         coherency_weighting=bool(p.coherency_weighting),
     )
-
-
-def check_supported(st: DasStatic) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
-    if st.frame_batch > 1:
-        raise NotImplementedError(
-            "DAS frame batches are not ported yet; see ROADMAP.md")
-    if st.family not in ("forces", "rca", "none"):
-        raise NotImplementedError(
-            f"DAS family {st.family!r} ({st.acquisition_kind.name}) is not "
-            "ported yet; see ROADMAP.md")
 
 
 # ---------------------------------------------------------------------------
@@ -247,10 +238,38 @@ def _readi_transmits(st: DasStatic, dyn):
     return dyn["xdc_element_pitch"][0] * tx_el, weight, row
 
 
+def _rx_columns(dyn) -> torch.Tensor:
+    """Whether acquisition 0 receives on columns (HERCULES, das.glsl:252)."""
+    return (dyn["orientations"][0] & 0xF) == int(RCAOrientation.Columns)
+
+
+def _hercules_transmits(st: DasStatic, dyn):
+    """HERCULES / UHERCULES (das.glsl:246-273): transmit ``j`` fires row or
+    column ``j`` (or ``sparse_elements[j]``), at its lateral position along
+    the axis the receive elements do not run on, and reads rf acquisition
+    ``j`` (``j + 1`` for UHERCULES); loop transmit 0 of a dense frame
+    weighs ``float32(1 / sqrt(A))`` (das.glsl:271-273)."""
+    sparse = int(st.sparse)
+    a = st.acquisition_count
+    dev = dyn["sparse_elements"].device
+    if st.sparse:
+        tx_ch = dyn["sparse_elements"][:a - sparse].to(torch.float32)
+    else:
+        tx_ch = torch.arange(sparse, a, dtype=torch.float32, device=dev)
+    pitch = torch.where(_rx_columns(dyn), dyn["xdc_element_pitch"][1],
+                        dyn["xdc_element_pitch"][0])
+    row = torch.arange(sparse, a, device=dev)
+    weight = torch.where(row == 0, float(np.float32(1.0 / np.sqrt(a))),
+                         1.0).to(torch.float32)
+    return tx_ch * pitch, weight, row
+
+
 def transmit_tables(st: DasStatic, dyn):
-    """Per-transmit ``(x position, weight, rf acquisition)`` of a
-    FORCES-family frame, shared by the plain twin and the CUDA kernel's
-    table preparation (``ops/das_cuda.py``)."""
+    """Per-transmit ``(lateral position, weight, rf acquisition)`` of a
+    FORCES- or HERCULES-family frame, shared by the plain twin and the CUDA
+    kernel's table preparation (``ops/das_cuda.py``)."""
+    if st.family == "hercules":
+        return _hercules_transmits(st, dyn)
     if st.readi_group_count > 1:
         return _readi_transmits(st, dyn)
     return _forces_transmits(st, dyn)
@@ -380,23 +399,82 @@ def _rca_block(st: DasStatic, dyn, rf, world):
     return out, inco
 
 
-_FAMILY_BLOCK = {"forces": _forces_block, "rca": _rca_block}
+# ---------------------------------------------------------------------------
+# HERCULES / UHERCULES / HERO_PA (das.glsl:231-284)
+# ---------------------------------------------------------------------------
+
+def _hercules_block(st: DasStatic, dyn, rf, world):
+    """All channels x transmits of a HERCULES-family frame for the voxels
+    ``world`` (V, 3) in world space (the JAX package's ``_hercules_block``):
+    acquisition 0's transmit index, then per (channel, transmit) the 2D
+    apodization over ``d2 = rx_d2 + tx_d2`` and the receive leg
+    ``sqrt(z^2 + d2)``.  Receiving on columns, the receive elements run
+    along x and the transmits along y; otherwise the axes swap."""
+    xdc = _apply_m4(dyn["xdc_transform"], world)
+    tab = rca_tables(dyn)[0]
+    rx_cols = _rx_columns(dyn)
+    tx_index = _sample_index(dyn, _rca_transmit_distance(world, tab))
+    z = xdc[:, 2]
+    z2 = z * z
+    fnum_over_z = torch.abs(dyn["f_number"] / z)
+    apod_test = 0.25 / (fnum_over_z * fnum_over_z)
+    xw, yw = xdc[:, 0], xdc[:, 1]
+    rx_lat = torch.where(rx_cols, xw, yw)
+    rx_pitch = torch.where(rx_cols, dyn["xdc_element_pitch"][0],
+                           dyn["xdc_element_pitch"][1])
+    tx_pos, first_w, row = transmit_tables(st, dyn)
+    tx_dd = torch.where(rx_cols, yw, xw)[None, :] - tx_pos[:, None]
+    tx_d2 = tx_dd * tx_dd                                  # (n_tx, V)
+    fs_over_c = dyn["sampling_frequency"] / dyn["speed_of_sound"]
+
+    v = world.shape[0]
+    out = torch.zeros(v, dtype=torch.complex64 if st.iq else torch.float32,
+                      device=world.device)
+    inco = torch.zeros(v, dtype=torch.float32, device=world.device)
+    for c, ch in enumerate(_channels(dyn, rf.shape[0])):
+        rx_dd = rx_lat - ch * rx_pitch
+        d2 = (rx_dd * rx_dd)[None, :] + tx_d2
+        mask = d2 < apod_test[None, :]
+        apod = first_w[:, None] * _apodize(
+            torch.where(mask, fnum_over_z[None, :] * torch.sqrt(d2), 0.0))
+        index = tx_index[None, :] + torch.sqrt(z2[None, :] + d2) * fs_over_c
+        vals = _sample_rf(st, dyn, rf[c, row], index)
+        vals = torch.where(mask, apod * vals, 0)
+        out = out + vals.sum(dim=0)
+        if st.coherency_weighting:
+            inco = inco + torch.abs(vals).sum(dim=0)
+    return out, inco
+
+
+_FAMILY_BLOCK = {"forces": _forces_block, "hercules": _hercules_block,
+                 "rca": _rca_block}
 
 
 def _zero_frame(st: DasStatic, device):
-    nx, ny, nz = st.output_points
-    zero = torch.zeros((nx, ny, nz), device=device,
+    shape = ((st.frame_batch,) if st.frame_batch > 1 else ()) \
+        + tuple(st.output_points)
+    zero = torch.zeros(shape, device=device,
                        dtype=torch.complex64 if st.iq else torch.float32)
     if st.coherency_weighting:
-        return zero, torch.zeros((nx, ny, nz), device=device)
+        return zero, torch.zeros(shape, device=device)
     return zero
 
 
 def das_ref(rf: torch.Tensor, dyn: dict, st: DasStatic):
-    """Plain-torch DAS of one frame ``rf`` (C, A, S) float32 or complex64.
-    Returns the (nx, ny, nz) coherent volume, or ``(coherent, incoherent)``
-    with coherency weighting."""
-    check_supported(st)
+    """Plain-torch DAS of one frame ``rf`` (C, A, S) float32 or complex64,
+    or of ``st.frame_batch = B > 1`` frames (B, C, A, S), one after the
+    other (what the JAX package's ``vmap`` computes).  Returns the
+    (nx, ny, nz) coherent volume, or (B, nx, ny, nz) volumes, or
+    ``(coherent, incoherent)`` of those with coherency weighting."""
+    if st.frame_batch > 1:
+        if rf.dim() != 4 or rf.shape[0] != st.frame_batch:
+            raise ValueError(f"rf shape {tuple(rf.shape)} is not a batch of "
+                             f"{st.frame_batch} frames (B, C, A, S)")
+        st1 = dataclasses.replace(st, frame_batch=1)
+        outs = [das_ref(frame, dyn, st1) for frame in rf]
+        if st.coherency_weighting:
+            return tuple(torch.stack(o) for o in zip(*outs))
+        return torch.stack(outs)
     if st.family == "none":
         # no das.glsl dispatch case for this kind: the frame stays zero
         return _zero_frame(st, rf.device)
@@ -409,9 +487,9 @@ def das_ref(rf: torch.Tensor, dyn: dict, st: DasStatic):
 
 
 def das(rf: torch.Tensor, dyn: dict, st: DasStatic):
-    """DAS one frame: the CUDA kernel for a CUDA tensor, the plain twin for a
-    CPU tensor (same signature and outputs as :func:`das_ref`)."""
-    check_supported(st)
+    """DAS one frame or a batch: the CUDA kernel for a CUDA tensor, the
+    plain twin for a CPU tensor (same signature and outputs as
+    :func:`das_ref`)."""
     if rf.is_cuda:
         if st.family == "none":
             return _zero_frame(st, rf.device)

@@ -2,16 +2,20 @@
 ``ogl_beamforming_tpu.ops.das_pallas`` that the port's paths need.
 
 :func:`prepare` is the analogue of ``das_pallas._prep_scalars``: it packs the
-dynamic parameters into the kernel's scalar vector.  A FORCES-family frame
-also gets its per-transmit tables (FORCES: element x positions; READI:
-Hadamard-row weights with rf acquisition ``e % A``; UFORCES:
-``sparse_elements``, skipping acquisition 0); an RCA frame gets its
-per-acquisition transmit table (``das.rca_tables``).  Everything stays on
-the device: no host synchronisation.  :func:`launch_tables` gathers them;
+dynamic parameters into the kernel's scalar vector.  A FORCES- or
+HERCULES-family frame also gets its per-transmit tables
+(``das.transmit_tables``: FORCES element x positions; READI Hadamard-row
+weights with rf acquisition ``e % A``; UFORCES and UHERCULES
+``sparse_elements``, skipping acquisition 0; HERCULES row or column
+positions with the first transmit's ``1/sqrt(A)`` weight); an RCA or
+HERCULES frame gets the per-acquisition transmit table (``das.rca_tables``,
+of which HERCULES reads acquisition 0).  Everything stays on the device: no
+host synchronisation.  :func:`launch_tables` gathers them;
 they depend only on the plan, so ``build_plan`` builds them once into
 ``dyn["launch"]`` and a frame reuses them.  :func:`das_cuda` checks its
 inputs, allocates the outputs and launches ``csrc/das.cu`` on the current
-stream.
+stream: one launch for a frame, and for a batch of B frames B // 4 launches
+of the four-frame instantiation and B % 4 of the single-frame one.
 """
 
 from __future__ import annotations
@@ -24,6 +28,10 @@ from .das import DasStatic, rca_tables, transmit_tables
 
 _MODE = {InterpolationMode.Nearest: 0, InterpolationMode.Linear: 1,
          InterpolationMode.Cubic: 2}
+# csrc/das.cu's Family codes
+_FAMILY = {"forces": 0, "hercules": 1, "rca": 2}
+FRAMES_PER_LAUNCH = 4
+"""Frames of a batch that one launch of the batched instantiations takes."""
 
 
 def prepare(dyn: dict) -> torch.Tensor:
@@ -45,12 +53,13 @@ def prepare(dyn: dict) -> torch.Tensor:
 
 def launch_tables(st: DasStatic, dyn: dict) -> dict:
     """The kernel's scalar vector and the tables of ``st``'s family, as
-    contiguous device tensors: ``rca`` (A, 8) for an RCA frame; ``tx_pos``,
-    ``tx_weight`` and ``tx_row`` for a FORCES-family frame."""
+    contiguous device tensors: ``rca`` (A, 8) for an RCA or HERCULES frame;
+    ``tx_pos``, ``tx_weight`` and ``tx_row`` for a FORCES- or
+    HERCULES-family frame."""
     tables = {"scalars": prepare(dyn)}
-    if st.family == "rca":
+    if st.family in ("rca", "hercules"):
         tables["rca"] = rca_tables(dyn)
-    else:
+    if st.family in ("forces", "hercules"):
         tx_pos, weight, row = transmit_tables(st, dyn)
         tables["tx_pos"] = tx_pos.to(torch.float32).contiguous()
         tables["tx_weight"] = weight.to(torch.float32).contiguous()
@@ -58,25 +67,47 @@ def launch_tables(st: DasStatic, dyn: dict) -> dict:
     return tables
 
 
+def launch_name(st: DasStatic, frames: int = 1) -> str:
+    """The :data:`build.LAUNCHES` key of a launch of ``frames`` frames of
+    ``st``'s family: ``das_forces``, ``das_hercules``, ``das_rca``, and
+    ``..._fb4`` for the four-frame instantiation."""
+    return f"das_{st.family}" + (f"_fb{frames}" if frames > 1 else "")
+
+
+def _chunks(batch: int):
+    """(first frame, frames) of each launch of a batch."""
+    start = 0
+    while batch - start >= FRAMES_PER_LAUNCH:
+        yield start, FRAMES_PER_LAUNCH
+        start += FRAMES_PER_LAUNCH
+    for i in range(start, batch):
+        yield i, 1
+
+
 def das_cuda(rf: torch.Tensor, dyn: dict, st: DasStatic):
-    """Launch the DAS kernel of ``st``'s family (FORCES or RCA) on ``rf``
-    (C, A, S): contiguous float32, or complex64 when ``st.iq``, on a CUDA
-    device that also holds ``dyn``.  Returns the (nx, ny, nz) volume, or
-    ``(coherent, incoherent)`` with coherency weighting.  The tables come
-    from ``dyn["launch"]`` where the plan built them, else from ``dyn``."""
-    if st.family not in ("forces", "rca") or st.frame_batch != 1:
-        raise NotImplementedError(
-            f"CUDA DAS covers single FORCES- and RCA-family frames, not "
-            f"{st.acquisition_kind.name} x {st.frame_batch}; see ROADMAP.md")
+    """Launch the DAS kernel of ``st``'s family on ``rf``: one frame
+    (C, A, S), or (B, C, A, S) when ``st.frame_batch = B > 1``; contiguous
+    float32, or complex64 when ``st.iq``, on a CUDA device that also holds
+    ``dyn``.  Returns the (nx, ny, nz) volume, or (B, nx, ny, nz), or
+    ``(coherent, incoherent)`` of those with coherency weighting.  The
+    tables come from ``dyn["launch"]`` where the plan built them, else from
+    ``dyn``."""
+    if st.family not in _FAMILY:
+        raise ValueError(f"CUDA DAS has no kernel for "
+                         f"{st.acquisition_kind.name} (family {st.family!r})")
     if not rf.is_cuda:
         raise ValueError(f"das_cuda needs a CUDA tensor, got {rf.device}")
     want = torch.complex64 if st.iq else torch.float32
     if rf.dtype != want:
         raise ValueError(f"rf dtype {rf.dtype}, expected {want}")
-    if rf.dim() != 3 or rf.shape[2] != st.sample_count \
-            or rf.shape[1] < st.acquisition_count:
+    batch = st.frame_batch
+    lead = (batch,) if batch > 1 else ()
+    want_shape = lead + ("C", st.acquisition_count, st.sample_count)
+    if rf.dim() != len(want_shape) or tuple(rf.shape[:len(lead)]) != lead \
+            or rf.shape[-1] != st.sample_count \
+            or rf.shape[-2] < st.acquisition_count:
         raise ValueError(f"rf shape {tuple(rf.shape)} does not match "
-                         f"(C, {st.acquisition_count}, {st.sample_count})")
+                         f"{want_shape}")
     if not rf.is_contiguous():
         raise ValueError("rf must be contiguous")
     tables = dyn.get("launch") or launch_tables(st, dyn)
@@ -84,34 +115,39 @@ def das_cuda(rf: torch.Tensor, dyn: dict, st: DasStatic):
     if scalars.device != rf.device:
         raise ValueError(f"dyn on {scalars.device}, rf on {rf.device}")
 
+    channels, rf_rows, samples = rf.shape[-3:]
     nx, ny, nz = st.output_points
     gnx, gny, gnz = st.global_points or st.output_points
-    out = torch.empty((nx, ny, nz), dtype=want, device=rf.device)
-    inco = (torch.empty((nx, ny, nz), dtype=torch.float32, device=rf.device)
+    out = torch.empty(lead + (nx, ny, nz), dtype=want, device=rf.device)
+    inco = (torch.empty(lead + (nx, ny, nz), dtype=torch.float32,
+                        device=rf.device)
             if st.coherency_weighting else None)
-    inco_ptr = inco.data_ptr() if inco is not None else None
+    if st.family == "rca":
+        n_tx = st.acquisition_count
+        tx = (None, None, None)
+    else:
+        n_tx = tables["tx_pos"].shape[0]
+        tx = tuple(tables[k].data_ptr()
+                   for k in ("tx_pos", "tx_weight", "tx_row"))
+    tab = tables["rca"].data_ptr() if "rca" in tables else None
     flags = (_MODE[st.interpolation_mode], int(st.iq),
              int(st.coherency_weighting))
+    # byte strides of one frame of rf, out and inco
+    rf_frame = channels * rf_rows * samples * rf.element_size()
+    out_frame = nx * ny * nz * out.element_size()
+    inco_frame = nx * ny * nz * 4
     lib = build.library()
     stream = torch.cuda.current_stream(rf.device).cuda_stream
-    if st.family == "rca":
-        name = "das_rca"
-        code = lib.das_rca(
-            rf.data_ptr(), scalars.data_ptr(), tables["rca"].data_ptr(),
-            out.data_ptr(), inco_ptr, rf.shape[0], rf.shape[1],
-            st.acquisition_count, rf.shape[2], nx, ny, nz, gnx, gny, gnz,
-            *flags, stream)
-    else:
-        tx_pos = tables["tx_pos"]
-        name = "das_forces"
-        code = lib.das_forces(
-            rf.data_ptr(), scalars.data_ptr(), tx_pos.data_ptr(),
-            tables["tx_weight"].data_ptr(), tables["tx_row"].data_ptr(),
-            out.data_ptr(), inco_ptr, rf.shape[0], st.channel_count,
-            rf.shape[1], rf.shape[2], tx_pos.shape[0], nx, ny, nz, gnx, gny,
-            gnz, *flags, stream)
-    build.check(name, code)
-    build.LAUNCHES[name] += 1
+    for first, frames in _chunks(batch):
+        code = lib.das_launch(
+            _FAMILY[st.family], rf.data_ptr() + first * rf_frame,
+            scalars.data_ptr(), tab, *tx, out.data_ptr() + first * out_frame,
+            None if inco is None else inco.data_ptr() + first * inco_frame,
+            channels, st.channel_count, rf_rows, samples, n_tx,
+            nx, ny, nz, gnx, gny, gnz, *flags, frames, stream)
+        name = launch_name(st, frames)
+        build.check(name, code)
+        build.LAUNCHES[name] += 1
     if st.coherency_weighting:
         return out, inco
     return out

@@ -6,6 +6,8 @@ backlog with N-most-recent export, and the exported compute-timing stats
 table, on one explicit device.  Each frame's stages run eagerly and are
 bracketed by CUDA events (on the GPU) or host clock reads (on the CPU, where
 torch runs synchronously), so the stats table holds true per-stage times.
+:meth:`Beamformer.push_batch` beamforms B frames per call through a batched
+plan, and :meth:`Beamformer.averaged_frame` averages the newest frames.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from ..params.enums import (BeamformerError, ContrastMode, ErrorKind,
                             ViewPlaneTag)
 from ..params.types import (FilterParameters, LiveImagingParameters,
                             Parameters, SimpleParameters)
+from ..ops.display import sum_frames
 from ..runtime.upload import prepare_rf
 from ..utils.device import resolve_device, to_host
 from ..utils.filters import Filter, make_filter
@@ -74,6 +77,7 @@ class ParameterBlock:
     filters: dict[int, Filter] = field(default_factory=dict)
     dirty: bool = True
     _plan: CompiledPlan | None = None
+    _batched_plans: dict = field(default_factory=dict)   # frame_batch -> plan
 
     def mark_dirty(self):
         self.dirty = True
@@ -220,17 +224,21 @@ class Beamformer:
             if not b.pipeline.stages:
                 raise BeamformerError(ErrorKind.InvalidStartShader,
                                       "no pipeline pushed")
-            a = max(b.parameters.acquisition_count, 1)
-            b._plan = build_plan(
-                b.parameters, b.pipeline, b.filters,
-                sparse_elements=b.sparse_elements[:a],
-                focal_vectors=b.focal_vectors[:a],
-                transmit_receive_orientations=(
-                    b.transmit_receive_orientations[:a]),
-                device=self.device)
+            b._batched_plans.clear()
+            b._plan = self._build_plan(b)
             self.stats.set_stages([sd.kind for sd in b._plan.descriptor.stages])
             b.dirty = False
         return b._plan
+
+    def _build_plan(self, b: ParameterBlock,
+                    frame_batch: int = 1) -> CompiledPlan:
+        a = max(b.parameters.acquisition_count, 1)
+        return build_plan(
+            b.parameters, b.pipeline, b.filters,
+            sparse_elements=b.sparse_elements[:a],
+            focal_vectors=b.focal_vectors[:a],
+            transmit_receive_orientations=b.transmit_receive_orientations[:a],
+            device=self.device, frame_batch=frame_batch)
 
     def push_data_with_compute(self, data: np.ndarray,
                                image_plane_tag: int = 0,
@@ -245,12 +253,65 @@ class Beamformer:
             raise BeamformerError(ErrorKind.InvalidImagePlane,
                                   str(image_plane_tag))
         b = self._block(block)
-        p = b.parameters
-        rf = prepare_rf(np.asarray(data), b.channel_mapping,
-                        p.channel_count, p.acquisition_count, p.sample_count,
-                        ContrastMode(p.contrast_mode), b.pipeline.data_kind)
+        rf = self._prepare(b, data)
         self.stats.record_rf_upload()
         return self._compute(rf, image_plane_tag, block)
+
+    @staticmethod
+    def _prepare(b: ParameterBlock, data) -> np.ndarray:
+        p = b.parameters
+        return prepare_rf(np.asarray(data), b.channel_mapping,
+                          p.channel_count, p.acquisition_count,
+                          p.sample_count, ContrastMode(p.contrast_mode),
+                          b.pipeline.data_kind)
+
+    def push_batch(self, data: np.ndarray, image_plane_tag: int = 0,
+                   block: int = 0) -> list[Frame]:
+        """Upload B raw frames and beamform them together.
+
+        ``data``: (B, raw_channels, raw_samples), each frame in the layout
+        of :meth:`push_data_with_compute`.  The block's batched plan for B
+        (built once, dropped when a parameter push rebuilds the plan) runs
+        the pre-DAS stages on all B frames at once and the DAS kernel on
+        four frames per launch, sharing each pair's geometry across them;
+        for offline datasets and frame averaging (:meth:`averaged_frame`).
+        Returns one :class:`Frame` per input frame, all in the backlog; the
+        stats table gets B rows, each the batch's stage times over B."""
+        if not (0 <= image_plane_tag < len(ViewPlaneTag)):
+            raise BeamformerError(ErrorKind.InvalidImagePlane,
+                                  str(image_plane_tag))
+        data = np.asarray(data)
+        if data.ndim != 3 or data.shape[0] < 1:
+            raise BeamformerError(ErrorKind.DataSizeMismatch,
+                                  f"expected (B, raw_channels, raw_samples),"
+                                  f" got {data.shape}")
+        batch = data.shape[0]
+        b = self._block(block)
+        single = self._ensure_plan(b)            # commit dirty state first
+        plan = single if batch == 1 else b._batched_plans.get(batch)
+        if plan is None:
+            plan = b._batched_plans[batch] = self._build_plan(b, batch)
+        # each prepared frame goes straight into its slice of the batch on
+        # the device: no second host copy of the whole batch
+        x = None
+        for i, frame in enumerate(data):
+            rf = torch.from_numpy(self._prepare(b, frame))
+            if x is None:
+                x = torch.empty((batch,) + tuple(rf.shape), dtype=rf.dtype,
+                                device=self.device)
+            x[i].copy_(rf)
+            self.stats.record_rf_upload()
+        clock = _StageClock(self.device)
+        # one frame runs through the ordinary plan: squeeze(0) drops the
+        # batch axis only when B = 1, and the reshape puts it back
+        out = plan(x.squeeze(0), mark=clock.mark)
+        out = out.reshape((batch,) + tuple(out.shape[-3:]))
+        stage_times = [t / batch for t in clock.seconds()]
+        with self._frame_lock:
+            for _ in range(batch):
+                self.stats.record_frame(stage_times)
+        view = ViewPlaneTag(image_plane_tag)
+        return [self._register_frame(o, view) for o in out]
 
     def compute_prepared(self, rf: np.ndarray, image_plane_tag: int = 0,
                          block: int = 0) -> Frame:
@@ -307,6 +368,21 @@ class Beamformer:
         """N most recent frames, oldest -> newest
         (lib/ogl_beamformer_lib_base.h:89-103)."""
         return self._backlog[-count:]
+
+    def averaged_frame(self, count: int | None = None,
+                       block: int = 0) -> Frame:
+        """Average of the ``count`` newest frames (the reference's
+        ``output_points.w`` frame averaging, sum.glsl), by default the
+        block's ``output_points[3]`` (at least 1)."""
+        if count is None:
+            count = max(int(self._block(block).parameters.output_points[3]), 1)
+        frames = self.get_last_frames(count)
+        if not frames:
+            raise BeamformerError(ErrorKind.ExportSpaceOverflow,
+                                  "no frames in backlog")
+        stack = torch.stack([f.data for f in frames])
+        return Frame(data=sum_frames(stack), id=frames[-1].id,
+                     view_plane=frames[-1].view_plane)
 
     def compute_timings(self):
         """Exported stats table (lib/ogl_beamformer_lib.c:738-754); per-stage

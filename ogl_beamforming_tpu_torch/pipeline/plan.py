@@ -8,12 +8,13 @@ runs the stages in order, each one dispatching to its CUDA kernel or its
 plain twin by the device of the data.
 
 Ported stages: Demodulate, Filter, Hilbert, Decode (Hadamard and Walsh)
-and DAS (the FORCES and RCA families).  A HERCULES-family DAS raises
-``NotImplementedError`` when the plan is built (queued in ROADMAP.md).
+and DAS (every family).  A plan built with ``frame_batch=B > 1`` takes B
+frames (B, C, A, S_wire) per call and returns (B, nx, ny, nz) volumes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -59,12 +60,13 @@ class PlanDescriptor:
     sample_count: int
     iq_pipeline: bool
     coherency_weighting: bool
+    frame_batch: int = 1
 
 
 @dataclass
 class CompiledPlan:
     """A built plan: call it with canonical (C, A, S_wire) RF on its
-    device."""
+    device, or (B, C, A, S_wire) for a plan of ``frame_batch = B > 1``."""
 
     descriptor: PlanDescriptor
     dyn: dict                        # dynamic parameters, tensors on device
@@ -148,10 +150,12 @@ def _decode_matrix(parameters: Parameters) -> np.ndarray:
 def build_plan(parameters: Parameters, pipeline: PipelineSpec,
                filters: dict[int, Filter], sparse_elements=None,
                focal_vectors=None, transmit_receive_orientations=None,
-               device="cuda") -> CompiledPlan:
+               device="cuda", frame_batch: int = 1) -> CompiledPlan:
     """Build the plan for a parameter block's current state, with its
     dynamic parameters on ``device`` (a GPU unless the caller asks for the
-    CPU; ``RuntimeError`` when no GPU is available)."""
+    CPU; ``RuntimeError`` when no GPU is available).  ``frame_batch=B > 1``
+    builds a batched plan: B frames per call, each DAS launch taking up to
+    four of them (``ops/das_cuda.py``)."""
     dev = resolve_device(device)
     stage_descs, sample_count, fs, time_offset, iq = _plan_stages(
         parameters, pipeline, filters)
@@ -202,10 +206,10 @@ def build_plan(parameters: Parameters, pipeline: PipelineSpec,
                 hadamard(readi), np.float32).T if readi > 1 else None),
             coherency_weighting=bool(parameters.coherency_weighting),
         )
-        das_static = das_ops.make_static(dp, iq=iq)
-        das_ops.check_supported(das_static)
+        das_static = dataclasses.replace(das_ops.make_static(dp, iq=iq),
+                                         frame_batch=int(frame_batch))
         das_dyn = das_ops.make_dynamic(dp, dev)
-        if dev.type == "cuda" and das_static.family in ("forces", "rca"):
+        if dev.type == "cuda" and das_static.family != "none":
             # the kernel's scalar vector and tables depend only on the plan
             das_dyn["launch"] = launch_tables(das_static, das_dyn)
         stage_descs.append(StageDesc(kind=ShaderKind.DAS, das=das_static))
@@ -218,6 +222,7 @@ def build_plan(parameters: Parameters, pipeline: PipelineSpec,
         sample_count=parameters.sample_count,
         iq_pipeline=iq,
         coherency_weighting=bool(parameters.coherency_weighting) and has_das,
+        frame_batch=int(frame_batch),
     )
 
     dyn: dict = {"das": das_dyn}
@@ -254,16 +259,25 @@ def _stage_parameter(pipeline: PipelineSpec, kind: ShaderKind, index,
 def compose_stages(desc: PlanDescriptor, rf: torch.Tensor, dyn: dict,
                    mark=None):
     """Run the stages of ``desc`` on ``rf`` (canonical (C, A, S_wire) raw
-    data on the plan's device).  ``mark``, when given, is called after each
-    stage (the executor's per-stage clock).  Returns the (nx, ny, nz) frame,
-    with coherency weighting already applied as part of the DAS stage, or
-    the last stage's output for a pipeline without DAS."""
+    data on the plan's device, or (B, C, A, S_wire) for a batch of
+    ``desc.frame_batch = B > 1``).  ``mark``, when given, is called after
+    each stage (the executor's per-stage clock).  Returns the (nx, ny, nz)
+    frame (or (B, nx, ny, nz) frames), with coherency weighting already
+    applied as part of the DAS stage, or the last stage's output for a
+    pipeline without DAS."""
     x = rf
+    batch = desc.frame_batch
     if desc.data_kind.is_complex:
         # Interleaved scalar pairs -> complex64 (I, Q adjacent samples) for
         # all complex wire kinds (reference: shaders/reshape.glsl:30-82).
         x = x.to(torch.float32)
         x = torch.complex(x[..., 0::2], x[..., 1::2])
+    if batch > 1:
+        # Decode mixes acquisitions of one channel and Demodulate, Filter
+        # and Hilbert act along the samples of one (channel, acquisition)
+        # row, so a batch runs through the pre-DAS kernels as B * C
+        # channels of one frame: no batched kernel is needed before DAS.
+        x = x.reshape((batch * x.shape[1],) + tuple(x.shape[2:]))
     out = None
     for i, sd in enumerate(desc.stages):
         if sd.kind == ShaderKind.Decode:
@@ -278,9 +292,13 @@ def compose_stages(desc: PlanDescriptor, rf: torch.Tensor, dyn: dict,
             x = hilbert(x)
         elif sd.kind == ShaderKind.DAS:
             rf_das = x if x.is_complex() else x.to(torch.float32)
+            if batch > 1:
+                rf_das = rf_das.reshape((batch, -1) + tuple(x.shape[1:]))
             out = das_ops.das(rf_das.contiguous(), dyn["das"], sd.das)
             if desc.coherency_weighting:
                 out = coherency_weighting(*out)
         if mark is not None:
             mark()
-    return x if out is None else out
+    if out is None:
+        return x.reshape((batch, -1) + tuple(x.shape[1:])) if batch > 1 else x
+    return out

@@ -8,9 +8,10 @@ so it runs on a GPU machine without the JAX package's dependencies:
 Tolerances: int16 decode is exact (int32 accumulation on both sides);
 float32 decode 1e-6 of the peak (summation order); DAS NRMSE 1e-4 (the
 sample index is evaluated bit-identically, so what remains is FMA
-contraction in the interpolation, summation order and libm); demodulate and
-FIR NRMSE 1e-6 (every product and sum is rounded as the twin rounds it, in
-the same order).
+contraction in the interpolation, summation order and libm); a frame of a
+four-frame DAS launch against a single-frame launch on it 1e-6 (the same
+arithmetic); demodulate and FIR NRMSE 1e-6 (every product and sum is
+rounded as the twin rounds it, in the same order).
 """
 
 import numpy as np
@@ -27,13 +28,14 @@ from ogl_beamforming_tpu_torch import (AcquisitionKind,  # noqa: E402
                                        RCAOrientation, ShaderKind)
 from ogl_beamforming_tpu_torch.kernels import build  # noqa: E402
 from ogl_beamforming_tpu_torch.models import presets  # noqa: E402
-from ogl_beamforming_tpu_torch.ops import das, decode, filtering  # noqa: E402
+from ogl_beamforming_tpu_torch.ops import (  # noqa: E402
+    das, das_cuda, decode, filtering)
 from ogl_beamforming_tpu_torch.ops.golden import DasParams  # noqa: E402
 from ogl_beamforming_tpu_torch.params.enums import (  # noqa: E402
     pack_tx_rx_orientation)
 from ogl_beamforming_tpu_torch.pipeline.executor import Beamformer  # noqa: E402
 from ogl_beamforming_tpu_torch.utils.transforms import (  # noqa: E402
-    das_transform_2d_xz)
+    das_transform_2d_xz, das_transform_3d)
 
 pytestmark = pytest.mark.cuda
 
@@ -170,6 +172,77 @@ def test_das_kernel_slab_offsets(dev):
     _compare(das.das(rf, dyn, st), das.das_ref(rf, dyn, st))
 
 
+def _hercules_params(kind, orient, interp, coherency, focus=np.inf):
+    a, kw = 4, {}
+    if kind == "uhercules":
+        a, kw = 5, dict(sparse=True,
+                        sparse_elements=np.array([0, 2, 4, 6, 7], np.int16))
+    tx, rx = RCAOrientation.Rows, RCAOrientation.Columns
+    if orient == "tx_columns":
+        tx, rx = rx, tx
+    xdc = np.eye(4, dtype=np.float32)
+    xdc[0, 3] = -0.4e-3
+    return DasParams(
+        acquisition_kind=(AcquisitionKind.UHERCULES if kind == "uhercules"
+                          else AcquisitionKind.HERCULES),
+        acquisition_count=a, channel_count=8, sample_count=256,
+        sampling_frequency=20e6, demodulation_frequency=5e6,
+        speed_of_sound=1500.0, time_offset=1e-7, f_number=0.8,
+        voxel_transform=das_transform_3d([0, 0, 1e-3],
+                                         [7 * PITCH, 7 * PITCH, 8e-3]),
+        xdc_transform=xdc,
+        xdc_element_pitch=np.array([PITCH, PITCH], np.float32),
+        output_points=(6, 5, 7), interpolation_mode=interp,
+        transmit_receive_orientation=pack_tx_rx_orientation(tx, rx),
+        transmit_angle=3.0, focus_depth=focus,
+        coherency_weighting=coherency, **kw)
+
+
+@pytest.mark.parametrize("coherency", [False, True])
+@pytest.mark.parametrize("iq", [False, True])
+@pytest.mark.parametrize("interp", list(InterpolationMode))
+@pytest.mark.parametrize("orient", ["tx_rows", "tx_columns"])
+@pytest.mark.parametrize("kind", ["hercules", "uhercules"])
+def test_hercules_kernel_matches_twin(dev, kind, orient, interp, iq,
+                                      coherency):
+    p = _hercules_params(kind, orient, interp, coherency,
+                         focus=np.inf if orient == "tx_rows" else 6e-3)
+    rf = _rf(p, iq, dev)
+    dyn, st = das.make_dynamic(p, dev), das.make_static(p, iq=iq)
+    before = build.LAUNCHES["das_hercules"]
+    out = das.das(rf, dyn, st)
+    assert build.LAUNCHES["das_hercules"] == before + 1
+    _compare(out, das.das_ref(rf, dyn, st))
+
+
+@pytest.mark.parametrize("iq", [False, True])
+@pytest.mark.parametrize("family", ["forces", "hercules", "flash"])
+def test_frame_batch_kernel_matches_single_frames(dev, family, iq):
+    """Five frames: one four-frame launch and one single-frame launch; each
+    frame against a single-frame launch on it (1e-6) and the twin (1e-4)."""
+    import dataclasses
+    if family == "hercules":
+        p = _hercules_params("hercules", "tx_rows", InterpolationMode.Cubic,
+                             True)
+    else:
+        p = _das_params(family, InterpolationMode.Cubic, True)
+    frames = torch.stack([_rf(p, iq, dev) * (1.0 + b) + b for b in range(5)])
+    dyn, st1 = das.make_dynamic(p, dev), das.make_static(p, iq=iq)
+    st = dataclasses.replace(st1, frame_batch=5)
+    name = das_cuda.launch_name(st1)
+    before = dict(build.LAUNCHES)
+    coh, inco = das.das(frames, dyn, st)
+    assert build.LAUNCHES[name + "_fb4"] == before.get(name + "_fb4", 0) + 1
+    assert build.LAUNCHES[name] == before.get(name, 0) + 1
+    assert coh.shape == (5,) + tuple(p.output_points)
+    ref_coh, ref_inco = das.das_ref(frames, dyn, st)
+    for b in range(5):
+        one_coh, one_inco = das.das(frames[b].contiguous(), dyn, st1)
+        _close(coh[b], one_coh)
+        _close(inco[b], one_inco)
+    _compare((coh, inco), (ref_coh, ref_inco))
+
+
 def _close(out, ref, tol=1e-6):
     assert out.dtype == ref.dtype and out.shape == ref.shape
     assert nrmse(ref.cpu().numpy(), out.cpu().numpy()) <= tol
@@ -262,3 +335,31 @@ def test_beamformer_cuda_matches_cpu(dev):
         bf.push_pipeline([ShaderKind.Decode, ShaderKind.DAS], DataKind.Int16)
         frames.append(bf.push_data_with_compute(raw).to_numpy())
     assert nrmse(frames[0], frames[1]) <= 1e-4
+
+
+def test_push_batch_cuda_matches_cpu(dev):
+    """Reduced path E (plane-wave Flash, Float32Complex, five frames) and
+    path C (HERCULES 3D, two frames) through push_batch on the GPU and the
+    CPU."""
+    pe, pipe_e = presets.plane_wave_2d(
+        channel_count=16, sample_count=1024, output_points=(16, 16),
+        lateral_mm=(-2.0, 5.0), axial_mm=(5.0, 15.0),
+        data_kind=DataKind.Float32Complex)
+    pc, pipe_c = presets.hercules_3d(channel_count=8, acquisition_count=8,
+                                     sample_count=256, output_points=(6, 5, 7))
+    pc.das_voxel_transform = das_transform_3d([0, 0, 1e-3],
+                                              [7 * PITCH, 7 * PITCH, 4e-3])
+    rng = np.random.default_rng(12)
+    cases = [(pe, pipe_e,
+              rng.standard_normal((5, 16, 2048)).astype(np.float32)),
+             (pc, pipe_c, rng.integers(-2048, 2048, (2, 8, 8 * 256),
+                                       dtype=np.int16))]
+    for p, pipe, raw in cases:
+        outs = []
+        for device in ("cpu", dev):
+            bf = Beamformer(device=device)
+            bf.push_parameters(p)
+            bf.push_pipeline(pipe.shaders, pipe.data_kind)
+            outs.append(np.stack([f.to_numpy() for f in bf.push_batch(raw)]))
+        assert np.abs(outs[0]).max() > 0
+        assert nrmse(outs[0], outs[1]) <= 1e-4

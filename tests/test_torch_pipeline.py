@@ -10,7 +10,10 @@ frames:
     Decode -> FORCES IQ DAS;
   * [Decode, Filter (complex MatchedChirp), DAS] on Int16Complex wire data
     and [Decode, Hilbert, DAS] on int16 (a pipeline starts with Decode or
-    Demodulate, pipeline/spec.py).
+    Demodulate, pipeline/spec.py);
+  * path C, HERCULES 3D reduced: int16 -> Decode -> HERCULES DAS;
+  * path D, uFORCES 3D with coherency weighting reduced: int16 -> Decode ->
+    UFORCES DAS over the sparse transmits -> coherency weighting.
 
 Also: planner parity on every preset, plan parameters converted from a JAX
 plan, the port's parameter copies against the JAX package's (presets,
@@ -51,7 +54,7 @@ from ogl_beamforming_tpu.runtime.upload import prepare_rf  # noqa: E402
 from ogl_beamforming_tpu.utils.filters import make_filter  # noqa: E402
 from ogl_beamforming_tpu.utils.hadamard import hadamard, walsh  # noqa: E402
 from ogl_beamforming_tpu.utils.transforms import (  # noqa: E402
-    das_output_dimension, das_transform_2d_xz)
+    das_output_dimension, das_transform_2d_xz, das_transform_3d)
 from ogl_beamforming_tpu.utils.zbp import load_zbp  # noqa: E402
 from ogl_beamforming_tpu_torch import convert  # noqa: E402
 from ogl_beamforming_tpu_torch.models import presets as port_presets  # noqa: E402
@@ -108,7 +111,8 @@ def _golden(raw, kind, p):
     return golden.das(dec, dp)
 
 
-def _run(bf, p, shaders, kind, raw, filters=(), focal_vectors=None):
+def _run(bf, p, shaders, kind, raw, filters=(), focal_vectors=None,
+         sparse_elements=None):
     """Configure a Beamformer of either package the same way and run one
     frame; the port gets the parameter blocks through ``convert``."""
     port = isinstance(bf, executor.Beamformer)
@@ -121,6 +125,8 @@ def _run(bf, p, shaders, kind, raw, filters=(), focal_vectors=None):
     bf.push_pipeline(shaders, kind)
     if focal_vectors is not None:
         bf.push_focal_vectors(focal_vectors)
+    if sparse_elements is not None:
+        bf.push_sparse_elements(sparse_elements)
     return bf.push_data_with_compute(raw)
 
 
@@ -169,9 +175,10 @@ def test_pipeline_matches_pallas_interpret():
 # Paths A and B, reduced, and the Filter and Hilbert stages
 # ---------------------------------------------------------------------------
 
-def _golden_das(p, rf, sample_count, fs, time_offset, vt=None):
+def _golden_das(p, rf, sample_count, fs, time_offset, vt=None, **kw):
     """Golden DAS of ``rf`` (C, A, S') with ``p``'s geometry at the DAS
-    stage's sample count, rate and time offset."""
+    stage's sample count, rate and time offset (``kw``: further
+    ``DasParams`` fields)."""
     return golden.das(rf, golden.DasParams(
         acquisition_kind=p.acquisition_kind,
         acquisition_count=p.acquisition_count,
@@ -187,7 +194,7 @@ def _golden_das(p, rf, sample_count, fs, time_offset, vt=None):
         output_points=tuple(das_output_dimension(p.output_points[:3])),
         transmit_receive_orientation=p.transmit_receive_orientation,
         transmit_angle=float(p.focal_vector[0]),
-        focus_depth=float(p.focal_vector[1])))
+        focus_depth=float(p.focal_vector[1]), **kw))
 
 
 def _path_a():
@@ -286,6 +293,50 @@ def test_filter_and_hilbert_stages_match_jax_and_golden(shaders):
     ref = _golden_das(p, dec, S, p.sampling_frequency, t0)
     assert np.abs(ref).max() > 0
     assert nrmse(_jax_frame(p, kind, raw, shaders, **kw), out) <= 1e-4
+    assert nrmse(ref, out) <= 1e-3
+
+
+def _path_c_or_d(path):
+    """Path C, ``presets.hercules_3d`` (8 ch x 8 tx x 256 int16 -> 6 x 5 x 7),
+    or path D, ``presets.uforces_volumetric`` (8 ch x 8 acquisitions x 256,
+    7 sparse transmits, coherency weighting -> 6 x 5 x 7): widths and depth
+    cut, the voxel grid moved up to the first 4 mm under the array."""
+    c, a, s = 8, 8, 256
+    ap = (c - 1) * PITCH
+    if path == "C":
+        p, pipe = presets.hercules_3d(channel_count=c, acquisition_count=a,
+                                      sample_count=s, output_points=(6, 5, 7))
+        p.das_voxel_transform = das_transform_3d([0, 0, 1e-3], [ap, ap, 4e-3])
+        sparse = None
+    else:
+        p, pipe, sparse = presets.uforces_volumetric(
+            channel_count=c, acquisition_count=a, sample_count=s,
+            output_points=(6, 5, 7))
+        p.das_voxel_transform = das_transform_3d([0, -ap / 2, 1e-3],
+                                                 [ap, ap / 2, 4e-3])
+    raw = np.random.default_rng(ord(path)).integers(
+        -2048, 2048, (c, a * s)).astype(np.int16)
+    return p, pipe, sparse, raw
+
+
+@pytest.mark.parametrize("path", ["C", "D"])
+def test_paths_c_and_d_match_jax_and_golden(path):
+    p, pipe, sparse, raw = _path_c_or_d(path)
+    c, a = p.channel_count, p.acquisition_count
+    kw = dict(sparse_elements=sparse)
+    frame = _port_frame(p, pipe.data_kind, raw, pipe.shaders, **kw)
+    assert frame.output_points == (6, 5, 7) and not frame.complex
+    out = frame.to_numpy()
+    dec = golden.decode_hadamard(raw.reshape(c, a, -1), hadamard(a))
+    extra = {} if sparse is None else dict(
+        sparse=True, sparse_elements=sparse, coherency_weighting=True)
+    ref = _golden_das(p, dec, p.sample_count, p.sampling_frequency,
+                      p.time_offset, **extra)
+    if sparse is not None:
+        ref = golden.coherency_weighting(*ref)
+    assert np.abs(ref).max() > 0
+    assert nrmse(_jax_frame(p, pipe.data_kind, raw, pipe.shaders, **kw),
+                 out) <= 1e-4
     assert nrmse(ref, out) <= 1e-3
 
 
@@ -466,21 +517,8 @@ def test_dyn_from_numpy_matches_build_plan(case):
 
 
 # ---------------------------------------------------------------------------
-# What the port refuses, and what it imports
+# Devices, and what the port imports
 # ---------------------------------------------------------------------------
-
-def test_unported_stage_raises_at_plan_build():
-    """A HERCULES-family DAS stage is not ported yet: building its plan
-    raises and names ROADMAP.md."""
-    params, pipe = port_presets.hercules_3d(
-        channel_count=8, acquisition_count=4, sample_count=64,
-        output_points=(4, 4, 4))
-    bf = executor.Beamformer(device="cpu")
-    bf.push_parameters(params)
-    bf.push_pipeline(pipe.shaders, pipe.data_kind)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bf.push_data_with_compute(np.zeros((8, 4 * 64), np.int16))
-
 
 def test_cuda_beamformer_without_gpu_raises():
     if torch.cuda.is_available():
