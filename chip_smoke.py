@@ -66,6 +66,25 @@ line:
                             averaged_frame the mean of the four.
               Prints device ms/frame with the stage split and ms/frame end
               to end.
+  6. micro    the microbenchmark kernels K5-K11 (ogl_beamforming_tpu_torch.
+              experiments, csrc/micro_*.cu), each against its plain version
+              at its TPU file's shapes: the gather-and-add variants and the
+              int8 probes bit-equal (K11 ``full`` also equal to the exact
+              product H @ X / 16, at (16, 256) and at the Quickstart
+              decode's width (128, 128 x 4096)), the rest NRMSE 1e-6; then
+              each module's sweep, launch counts set to 0 just before and
+              read just after (K5, K6: every variant in shared and device
+              memory, by CUDA events and by its kernel time in a profiler
+              trace; K7: the REPS slope of every variant in both; K8 and
+              K9: the cubic-tap gather bundle and the one-hot product at B
+              = 8, 32, 128, K8 from the trace, K9 by the UNITS slope; K10
+              and K11 ``full`` timed).  Prints cycles per warp gather, ns per voxel-row-frame
+              and the SM clock, K10 beside torch._int_mm, and K11 ``full``
+              beside the decode kernel and the cuBLAS f32 product.
+  7. trace    torch.profiler over one Quickstart frame and one path E batch
+              through Beamformer (utils/profiling.device_time): kernel time
+              by name and the device busy share of the window;
+              Beamformer.profile_device_stages of the Quickstart.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -73,6 +92,8 @@ The second-to-last line is the kernel table as JSON; the last line is
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import statistics
 import subprocess
@@ -153,21 +174,33 @@ def kernel_ms(fn) -> tuple[float, float]:
     return statistics.median(times), q3 - q1
 
 
-def bound(nbytes: float, nops: float) -> tuple[float, str]:
+def bound(nbytes: float, nops) -> tuple[float, str]:
     """Least time in ms for ``nbytes`` of device memory traffic and
-    ``nops`` float32 operations, and which of the two sets it."""
+    ``nops`` operations, and which of the two sets it.  ``nops`` is a count
+    of float32 operations, or a list of ``(count, peak per second)`` for
+    work on several units (the operation times add)."""
     b = nbytes / PEAK_BYTES_PER_S * 1e3
-    o = nops / PEAK_F32_PER_S * 1e3
+    if not isinstance(nops, (list, tuple)):
+        nops = [(nops, PEAK_F32_PER_S)]
+    o = sum(n / peak for n, peak in nops) * 1e3
     return (b, "bytes") if b >= o else (o, "operations")
 
 
 def kernel_row(name, source, replaces, err, ms, plain_ms, nbytes, nops,
-               library_ms=None) -> dict:
+               library_ms=None, iqr=None) -> dict:
+    """A row of the kernel table; ``replaces`` is a path under the JAX
+    package, or from the repository root when it starts with
+    ``experiments/``."""
     bound_ms, bound_by = bound(nbytes, nops)
-    return dict(name=name, route="cuda", source=f"{PKG}/csrc/{source}",
-                replaces=f"{TPU}/{replaces}", launches=0,
-                max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    if not replaces.startswith("experiments/"):
+        replaces = f"{TPU}/{replaces}"
+    row = dict(name=name, route="cuda", source=f"{PKG}/csrc/{source}",
+               replaces=replaces, launches=0, max_abs_err=float(err), ms=ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=library_ms)
+    if iqr is not None:
+        row["iqr_ms"] = iqr
+    return row
 
 
 def compare(kernel_out, plain_out, tol: float, label: str) -> float:
@@ -1040,8 +1073,389 @@ def phase_main_batch(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the microbenchmark kernels (K5-K11, ogl_beamforming_tpu_torch.
+# experiments).  Each kernel against its plain version at its TPU file's
+# shapes (gather-and-add variants and the int8 probes bit-equal, the rest
+# NRMSE 1e-6), then its module's sweep with the launch counts set to 0 just
+# before and read just after, then its table row at one timed shape.
+
+PEAK_BF16_PER_S = 989e12     # dense tensor-core rates, H100 SXM data sheet
+PEAK_INT8_PER_S = 1979e12
+MICRO_ITERS = 5              # launches per timed run in the phase's sweeps
+MICRO_ADD_ONLY = {"clip", "mod", "raw", "f32_direct", "i32_direct",
+                  "bcast_hoist", "bcast_chunk"}
+TILE_BYTES = 5 * 16 * 128 * 4     # four (16, 128) input tiles and the output
+
+
+def micro_compare(out, ref, exact: bool, label: str) -> float:
+    """The kernel's tile against the plain version's: bit-equal when
+    ``exact``, else NRMSE <= 1e-6; returns the max abs error."""
+    torch.cuda.synchronize()
+    k, p = out.cpu().numpy(), ref.cpu().numpy()
+    check(k.shape == p.shape and np.isfinite(k).all(),
+          f"{label}: kernel {k.shape} vs plain {p.shape}, or not finite")
+    if exact:
+        check(np.array_equal(k, p), f"{label}: not bit-equal to the plain "
+              f"version (max abs err {np.abs(k - p).max():.3e})")
+    else:
+        err = nrmse(p, k)
+        check(err <= 1e-6, f"{label}: NRMSE {err:.3e} > 1e-6")
+    return float(np.abs(k.astype(np.float64) - p).max())
+
+
+def launches_of(name: str, run) -> int:
+    """``run()`` with the launch counts set to 0 just before; returns the
+    launches of kernel ``name`` it made."""
+    from ogl_beamforming_tpu_torch.kernels import build
+    build.LAUNCHES.clear()
+    run()
+    return build.LAUNCHES[name]
+
+
+def gather_ops(steps, reps, ops_per_rep) -> float:
+    return float(steps) * reps * 16 * 128 * ops_per_rep
+
+
+def print_gather_launches(label, res) -> None:
+    print(f"[micro] {label} (REPS 64, STEPS 512), per launch: kernel us "
+          "from the trace / CUDA-event us with the enqueue -> cycles per "
+          "warp gather from the kernel time: " + "; ".join(
+              f"{k} {r['kernel_us']:.2f} / {r['us']:.2f} -> "
+              f"{r['cycles_per_warp_gather']:.3f}" for k, r in res.items()))
+
+
+def phase_micro_gather(dev) -> list[tuple[dict, int]]:
+    """K5, K6, K7: every variant in both memory spaces against its plain
+    version, the sweeps, and one row each (timed through the launcher, past
+    the wrapper's index check)."""
+    from ogl_beamforming_tpu_torch.experiments import (gather_micro,
+                                                       gather_micro2,
+                                                       gather_micro3,
+                                                       launch_gather)
+    out = []
+    # K5
+    x = gather_micro.make_inputs(dev)
+    err = 0.0
+    for v in gather_micro.VARIANTS:
+        ref = gather_micro.kernel_ref(v, x["src"], x["idx"])
+        for smem in (True, False):
+            err = max(err, micro_compare(
+                gather_micro.kernel(v, x["src"], x["idx"], smem=smem), ref,
+                v in MICRO_ADD_ONLY, f"K5 {v} smem={smem}"))
+    res = {}
+    n = launches_of("micro_gather", lambda: res.update(
+        {f"{v}/{'shared' if sm else 'global'}": gather_micro.measure(
+            v, x, sm, iters=MICRO_ITERS)
+         for v in gather_micro.VARIANTS for sm in (True, False)}))
+    print_gather_launches("K5 gather_micro", res)
+    ms, iqr = kernel_ms(lambda: launch_gather(
+        gather_micro.VARIANT_IDS["mod"], x["src"], x["src"], x["idx"],
+        x["src"], gather_micro.REPS, gather_micro.STEPS, True))
+    plain = median_ms(lambda: gather_micro.kernel_ref(
+        "mod", x["src"], x["idx"], steps=gather_micro.STEPS), RUNS)
+    out.append((kernel_row(
+        "micro_gather_k5", "micro_gather.cu", "experiments/gather_micro.py:56",
+        err, ms, plain, TILE_BYTES, gather_ops(
+            gather_micro.STEPS, gather_micro.REPS,
+            gather_micro.OPS_PER_REP["mod"]), iqr=iqr), n))
+
+    # K6
+    x = gather_micro2.make_inputs(dev)
+    err = 0.0
+    for v in gather_micro2.VARIANTS:
+        src, src2 = x[v]
+        ref = gather_micro2.kernel_ref(v, src, src2, x["idx"], x["w"])
+        for smem in (True, False):
+            err = max(err, micro_compare(gather_micro2.kernel(
+                v, src, src2, x["idx"], x["w"], smem=smem), ref,
+                v in MICRO_ADD_ONLY, f"K6 {v} smem={smem}"))
+    res = {}
+    n = launches_of("micro_gather", lambda: res.update(
+        {f"{v}/{'shared' if sm else 'global'}": gather_micro2.measure(
+            v, x, sm, iters=MICRO_ITERS)
+         for v in gather_micro2.VARIANTS for sm in (True, False)}))
+    print_gather_launches("K6 gather_micro2", res)
+    src, src2 = x["hermite_pair"]
+    ms, iqr = kernel_ms(lambda: launch_gather(
+        gather_micro2.VARIANT_IDS["hermite_pair"], src, src2, x["idx"],
+        x["w"], gather_micro2.REPS, gather_micro2.STEPS, True))
+    plain = median_ms(lambda: gather_micro2.kernel_ref(
+        "hermite_pair", src, src2, x["idx"], x["w"],
+        steps=gather_micro2.STEPS), RUNS)
+    out.append((kernel_row(
+        "micro_gather_k6", "micro_gather.cu",
+        "experiments/gather_micro2.py:136", err, ms, plain, TILE_BYTES,
+        gather_ops(gather_micro2.STEPS, gather_micro2.REPS,
+                   gather_micro2.OPS_PER_REP["hermite_pair"]), iqr=iqr), n))
+
+    # K7: every variant at the largest REPS, then the slope sweep
+    x = gather_micro3.make_inputs(dev)
+    reps = gather_micro3.REPS_SWEEP[-1]
+    err = 0.0
+    for v in gather_micro3.VARIANTS:
+        src, src2 = gather_micro3.sources(v, x)
+        ref = gather_micro3.kernel_ref(v, src, src2, x["idx"], x["w"], reps)
+        for smem in (True, False):
+            err = max(err, micro_compare(gather_micro3.kernel(
+                v, src, src2, x["idx"], x["w"], reps, smem=smem), ref,
+                v in MICRO_ADD_ONLY, f"K7 {v} smem={smem}"))
+    res = {}
+    n = launches_of("micro_gather", lambda: res.update(
+        {f"{v}/{'shared' if sm else 'global'}": gather_micro3.sweep(
+            v, x, sm, iters=MICRO_ITERS)
+         for v in gather_micro3.VARIANTS for sm in (True, False)}))
+    for k, r in res.items():
+        print(f"[micro] K7 gather_micro3 {k}: slope "
+              f"{r['slope_us_per_rep']:.4f} us/rep -> "
+              f"{r['cycles_per_warp_gather']:.3f} cycles per warp gather at "
+              f"{r['sm_clock_mhz']:g} MHz "
+              f"(REPS {list(gather_micro3.REPS_SWEEP)}: "
+              f"{', '.join(f'{t:.1f}' for t in r['us'])} us)")
+    src, src2 = gather_micro3.sources("hermite_pair", x)
+    ms, iqr = kernel_ms(lambda: launch_gather(
+        gather_micro3.VARIANT_IDS["hermite_pair"], src, src2, x["idx"],
+        x["w"], reps, gather_micro3.STEPS, True))
+    plain = median_ms(lambda: gather_micro3.kernel_ref(
+        "hermite_pair", src, src2, x["idx"], x["w"], reps,
+        steps=gather_micro3.STEPS), RUNS)
+    out.append((kernel_row(
+        "micro_gather_k7", "micro_gather.cu",
+        "experiments/gather_micro3.py:105", err, ms, plain, TILE_BYTES,
+        gather_ops(gather_micro3.STEPS, reps,
+                   gather_micro3.OPS_PER_REP["hermite_pair"]), iqr=iqr), n))
+    return out
+
+
+def phase_micro_onehot(dev) -> list[tuple[dict, int]]:
+    """K8, K9: the gather bundle and the one-hot product against their
+    plain versions, the sweeps, and a one-hot row each (B = 128)."""
+    from ogl_beamforming_tpu_torch.experiments import (ONEHOT_BATCHES,
+                                                       launch_onehot,
+                                                       onehot_build_ops,
+                                                       onehot_micro,
+                                                       onehot_micro2,
+                                                       onehot_mma_ops)
+    out = []
+    for mod, label, units, replaces in (
+            (onehot_micro, "K8", onehot_micro.UNITS,
+             "experiments/onehot_micro.py:86"),
+            (onehot_micro2, "K9", onehot_micro2.UNITS_SWEEP[-1],
+             "experiments/onehot_micro2.py:98")):
+        x = onehot_micro.make_inputs(dev)
+        g = (x["src"], x["src2"], x["idx"], x["w"])
+        ref = mod.gather_kernel_ref(*g, units=units)
+        for smem in (True, False):
+            micro_compare(mod.gather_kernel(*g, units=units, smem=smem), ref,
+                          False, f"{label} gather_hermite smem={smem}")
+        err = 0.0
+        for b in ONEHOT_BATCHES:
+            o = (x[f"rf{b}"], x["kvox"], x["wt4"])
+            err = max(err, micro_compare(
+                mod.onehot_kernel(*o, units=units),
+                mod.onehot_kernel_ref(*o, units=units), False,
+                f"{label} onehot B={b}"))
+        res = {}
+        if mod is onehot_micro:
+            with contextlib.redirect_stdout(io.StringIO()):
+                n = launches_of("micro_onehot", lambda: res.update(
+                    onehot_micro.measure(x, iters=MICRO_ITERS)))
+        else:
+            def run():
+                for smem in (True, False):
+                    res[f"gather_hermite/{'shared' if smem else 'global'}"] \
+                        = onehot_micro2.sweep_gather(x, smem,
+                                                     iters=MICRO_ITERS)
+                for b in ONEHOT_BATCHES:
+                    res[f"onehot_mxu_B{b}"] = onehot_micro2.sweep_onehot(
+                        x, b, iters=MICRO_ITERS)
+            n = launches_of("micro_onehot", run)
+        for k, r in res.items():
+            ns = {kk: v for kk, v in r.items() if kk.startswith("ns_")}
+            us = np.round(np.atleast_1d(r["us"]), 1).tolist()
+            print(f"[micro] {label} {mod.__name__.rsplit('.', 1)[1]} {k}: "
+                  + ", ".join(f"{kk} {v:.4f}" for kk, v in ns.items())
+                  + f" (us {us})")
+        o = (x["rf128"], x["kvox"], x["wt4"])
+        ms, iqr = kernel_ms(lambda: launch_onehot(*o, units, mod.K8_FORM,
+                                                  mod.STEPS))
+        plain = median_ms(lambda: mod.onehot_kernel_ref(
+            *o, units=units, steps=mod.STEPS), RUNS)
+        out.append((kernel_row(
+            f"micro_onehot_{label.lower()}", "micro_onehot.cu", replaces,
+            err, ms, plain, (128 * 128 * 2 + 16 * 128) * 4,
+            [(onehot_build_ops(units, mod.STEPS), PEAK_F32_PER_S),
+             (onehot_mma_ops(128, units, mod.STEPS), PEAK_BF16_PER_S)],
+            iqr=iqr), n))
+    return out
+
+
+def phase_micro_i8(dev) -> list[tuple[dict, int]]:
+    """K10 and K11: exact against the plain versions and the exact product;
+    K10 timed beside torch._int_mm, K11 ``full`` at the decode's width
+    beside the decode kernel (K2) and the cuBLAS f32 product."""
+    from ogl_beamforming_tpu_torch.experiments import (launch_ms, probe_i8,
+                                                       probe_i8b)
+    from ogl_beamforming_tpu_torch.ops import decode
+    out = []
+    x = probe_i8.make_inputs(dev)
+    exact = (x["a"].to(torch.float64) @ x["b"].to(torch.float64)).cpu()
+    for name, od in probe_i8.BODIES.items():
+        k = probe_i8.kernel2(x["a"], x["b"], od)
+        micro_compare(k, probe_i8.kernel2_ref(x["a"], x["b"], od), True,
+                      f"K10 {name}")
+        check(torch.equal(k.cpu().to(torch.float64), exact),
+              f"K10 {name} != the exact product")
+    n = launches_of("micro_i8", lambda: [
+        probe_i8.kernel2(x["a"], x["b"], od)
+        for od in probe_i8.BODIES.values()])
+    ms, iqr = kernel_ms(lambda: probe_i8.kernel2(x["a"], x["b"]))
+    plain = median_ms(lambda: probe_i8.kernel2_ref(x["a"], x["b"]), RUNS)
+    lib = median_ms(lambda: torch._int_mm(x["a"], x["b"]))
+    check(torch.equal(torch._int_mm(x["a"], x["b"]),
+                      probe_i8.kernel2(x["a"], x["b"])),
+          "K10 != torch._int_mm")
+    print(f"[micro] K10 probe_i8 int8 (128, 128) @ (128, 256): int32 and "
+          f"float32 bodies equal to the exact product; kernel {ms * 1e3:.2f}"
+          f" us (IQR {iqr * 1e3:.2f}), plain {plain * 1e3:.2f} us, "
+          f"torch._int_mm {lib * 1e3:.2f} us")
+    out.append((kernel_row(
+        "micro_i8_k10", "micro_i8.cu", "experiments/probe_i8.py:26", 0.0, ms,
+        plain, 128 * 128 + 128 * 256 + 128 * 256 * 4,
+        [(2.0 * 128 * 128 * 256, PEAK_INT8_PER_S)], lib, iqr=iqr), n))
+
+    x = probe_i8b.make_inputs(dev)
+    for body in probe_i8b.BODIES:
+        micro_compare(probe_i8b.k(body, x["h"], x["x"]),
+                      probe_i8b.k_ref(body, x["h"], x["x"]), True,
+                      f"K11 {body}")
+    check(np.array_equal(
+        probe_i8b.k("full", x["h"], x["x"]).cpu().numpy().astype(np.float64),
+        probe_i8b.full_exact(x["h"], x["x"])), "K11 full != H @ X / 16")
+    a, bs = probe_i8b.DECODE_A, probe_i8b.DECODE_BS
+    w = probe_i8b.make_inputs(dev, a, bs)
+    full = probe_i8b.k("full", w["h"], w["x"])
+    micro_compare(full, probe_i8b.k_ref("full", w["h"], w["x"]), True,
+                  "K11 full at the decode width")
+    # float64 products of these integers are exact (|sum| < 2^53)
+    exact = torch.matmul(w["h"].to(torch.float64), w["x"].to(torch.float64))
+    check(torch.equal(full.to(torch.float64), exact / 16.0),
+          "K11 full at the decode width != H @ X / 16")
+    del exact
+    n = launches_of("micro_i8", lambda: launch_ms(
+        lambda: probe_i8b.k("full", w["h"], w["x"]), iters=MICRO_ITERS))
+    ms, iqr = kernel_ms(lambda: probe_i8b.k("full", w["h"], w["x"]))
+    plain = median_ms(lambda: probe_i8b.k_ref("full", w["h"], w["x"]), RUNS)
+    h32, x32 = w["h"].to(torch.float32), w["x"].to(torch.float32)
+    lib = median_ms(lambda: torch.matmul(h32, x32))
+    del x32
+    rf = w["x"].reshape(a, 128, bs // 128).transpose(0, 1).contiguous()
+    hd = decode.hadamard_matrix(a, device=dev)
+    k2_ms, k2_iqr = kernel_ms(lambda: decode.decode_hadamard_cuda(rf, hd))
+    print(f"[micro] K11 probe_i8b: five bodies bit-equal at (16, 256), full "
+          f"= H @ X / 16 exactly; full at the decode width ({a}, {bs}): "
+          f"bit-equal to the plain version and the exact product; kernel "
+          f"{ms:.3f} ms (IQR {iqr:.3f}), plain {plain:.3f} ms, cuBLAS f32 "
+          f"matmul {lib:.3f} ms, decode kernel K2 at (128, 128, 4096) "
+          f"{k2_ms:.3f} ms (IQR {k2_iqr:.3f})")
+    out.append((kernel_row(
+        "micro_i8_k11", "micro_i8.cu", "experiments/probe_i8b.py:15", 0.0,
+        ms, plain, a * a + a * bs * 2 + a * bs * 4,
+        [(2.0 * 2 * a * a * bs, PEAK_INT8_PER_S)], lib, iqr=iqr), n))
+    return out
+
+
+def phase_micro(dev, smi_line) -> list[dict]:
+    """Phase 6; returns the rows with their sweeps' launch counts."""
+    from ogl_beamforming_tpu_torch.experiments import (gather_micro,
+                                                       gather_micro2,
+                                                       gather_micro3,
+                                                       sass_loads,
+                                                       sm_clock_mhz)
+    from ogl_beamforming_tpu_torch.kernels import build
+    t0 = time.perf_counter()
+    names = {}
+    for label, mod in (("K5", gather_micro), ("K6", gather_micro2),
+                       ("K7", gather_micro3)):
+        names.update({i: f"{label} {v}" for v, i in mod.VARIANT_IDS.items()})
+    loads = sass_loads(build.library_path())
+    print("[micro] static loads in the compiled gather kernels (cuobjdump "
+          "-sass; LDS/LDG; the loop body holds 8 repetitions x 2 elements): "
+          + "; ".join(f"{names.get(k, k)} {'shared' if sm else 'global'} "
+                      f"{n_lds}/{n_ldg}"
+                      for (k, sm), (n_lds, n_ldg) in sorted(
+                          loads.items(), key=lambda kv: str(kv[0]))))
+    clock = sm_clock_mhz()
+    rows = (phase_micro_gather(dev) + phase_micro_onehot(dev)
+            + phase_micro_i8(dev))
+    for row, n in rows:
+        row["launches"] = n
+    print(f"[micro] {smi_line}; SM clock {clock:g} MHz before the sweeps "
+          f"(idle), {sm_clock_mhz():g} MHz after; phase took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return [row for row, _ in rows]
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: traced frames.  torch.profiler over one Quickstart frame and one
+# path E batch through Beamformer: kernel time by name and the device busy
+# share of the window; profile_device_stages of the Quickstart.
+
+def print_profile(label, prof, host_ms) -> None:
+    top = "; ".join(f"{name[:60]} {s * 1e3:.3f}"
+                    for name, s in prof.top_ops[:6])
+    print(f"[trace] {label}: {prof.kernel_count} kernels, kernel time "
+          f"{prof.module_seconds * 1e3:.3f} ms, copies "
+          f"{prof.copy_seconds * 1e3:.3f} ms, traced window "
+          f"{prof.window_seconds * 1e3:.3f} ms -> busy share "
+          f"{prof.busy_share:.4f}; untraced host clock {host_ms:.3f} ms -> "
+          f"kernel share {prof.module_seconds * 1e3 / host_ms:.4f}")
+    print(f"[trace] {label} kernel ms by name: {top}")
+
+
+def host_ms(fn, runs=RUNS) -> float:
+    """Median host clock of ``fn`` over ``runs`` calls, each synchronised."""
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_trace(dev) -> None:
+    from ogl_beamforming_tpu_torch import DataKind
+    from ogl_beamforming_tpu_torch.models import presets
+    from ogl_beamforming_tpu_torch.utils.profiling import device_time
+
+    rng = np.random.default_rng(77)
+    c, a, s = 128, 128, 4096
+    params, pipe = presets.forces_compounding(
+        channel_count=c, transmit_count=a, sample_count=s, demodulate=False)
+    bf = beamformer(dev, params, pipe.shaders, pipe.data_kind)
+    raw = rng.integers(-2048, 2048, (c, a * s), dtype=np.int16)
+    frame = lambda r: bf.push_data_with_compute(r).data  # noqa: E731
+    prof = device_time(frame, raw)
+    print_profile("Quickstart frame (push_data_with_compute)", prof,
+                  host_ms(lambda: frame(raw)))
+    stages = bf.profile_device_stages(raw.reshape(c, a, s))
+    check(all(t > 0 for _, t in stages), f"profile_device_stages {stages}")
+    print("[trace] Quickstart profile_device_stages: " + ", ".join(
+        f"{k.name} {t * 1e3:.3f} ms" for k, t in stages))
+
+    params, pipe = presets.plane_wave_2d(data_kind=DataKind.Float32Complex)
+    bf = beamformer(dev, params, pipe.shaders, pipe.data_kind)
+    raw = rng.standard_normal((FRAME_BATCH, params.channel_count,
+                               2 * params.sample_count)).astype(np.float32)
+    batch = lambda r: tuple(f.data for f in bf.push_batch(r))  # noqa: E731
+    prof = device_time(batch, raw)
+    print_profile(f"path E batch of {FRAME_BATCH} (push_batch)", prof,
+                  host_ms(lambda: batch(raw)))
+
+
 def main() -> None:
-    name, _ = phase_device()
+    name, smi_line = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     rows = phase_kernels(dev) + phase_kernels_volumes(dev)
@@ -1057,6 +1471,9 @@ def main() -> None:
     launches["das_rca_fb4"] = phase_main_batch(dev)["das_rca_fb4"]
     for row in rows:
         row["launches"] = launches[row["name"]]
+    rows += phase_micro(dev, smi_line)
+    phase_trace(dev)
+    for row in rows:
         check(row["launches"] > 0, f"{row['name']} never launched on its path")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

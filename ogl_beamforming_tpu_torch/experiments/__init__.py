@@ -1,0 +1,387 @@
+"""Hopper ports of the JAX package's Pallas microbenchmarks (``experiments/``).
+
+Each module keeps its TPU counterpart's name and holds the plain-torch
+version of every kernel body, a wrapper that launches the CUDA kernel for a
+CUDA tensor (``csrc/micro_*.cu``) and takes the plain version only for a CPU
+tensor, and a ``main(device="cuda")`` that prints one JSON line per variant
+and raises ``RuntimeError`` without a GPU.  Run one on the card with
+
+    python -m ogl_beamforming_tpu_torch.experiments.gather_micro3
+
+Timing (this module): CUDA-event time per launch, best of a few runs of
+several launches, and the least-squares slope of time over a swept
+repetition count, in which constant terms (launch, prologue, store) cancel.
+A launch shorter than its enqueue is timed from the profiler's kernel
+durations instead (:func:`traced_ms`).
+A TPU grid ran its steps in order on one core; here the steps are blocks
+that run side by side on every SM, so a time converts to cycles per unit of
+work as ``time * SM clock * SMs / work``.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import torch
+
+LANE = 128
+WARP = 32
+
+
+def launch_ms(fn, iters: int = 20, repeats: int = 3) -> float:
+    """Milliseconds per call of ``fn``: CUDA events around ``iters`` calls,
+    best of ``repeats``, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
+
+
+def traced_ms(fn, iters: int = 20) -> float:
+    """Milliseconds of kernel time per call of ``fn`` from a
+    ``torch.profiler`` trace of ``iters`` calls (``utils.profiling``): the
+    device's own durations, without the host's launch gaps that a CUDA-event
+    time of launches shorter than their enqueue holds."""
+    from ..utils.profiling import device_time
+
+    def run():
+        for _ in range(iters):
+            out = fn()
+        return out
+
+    return device_time(run).module_seconds * 1e3 / iters
+
+
+def slope(xs, ys) -> float:
+    """Least-squares slope of ``ys`` over ``xs``."""
+    return float(np.polyfit(np.asarray(xs, np.float64),
+                            np.asarray(ys, np.float64), 1)[0])
+
+
+def require_gpu(device) -> torch.device:
+    """The CUDA device a microbenchmark measures; ``RuntimeError`` without
+    one (``utils.device.resolve_device``), or for any other device."""
+    from ..utils.device import resolve_device
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError(f"a microbenchmark measures the GPU, got {dev}")
+    return dev
+
+
+def card() -> dict:
+    """The card's name and power limit as ``nvidia-smi`` reads them, and
+    its SM clock now, for the record beside every time."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return {"card": out.stdout.strip().splitlines()[0],
+            "sm_clock_mhz": sm_clock_mhz()}
+
+
+def sm_count(device=None) -> int:
+    return torch.cuda.get_device_properties(
+        device if device is not None else 0).multi_processor_count
+
+
+def sm_clock_mhz() -> float:
+    """The SM clock now, as ``nvidia-smi --query-gpu=clocks.sm`` reads it
+    (MHz, first card)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def cycles_per_warp_op(seconds: float, clock_mhz: float, sms: int,
+                       warp_ops: float) -> float:
+    """SM cycles per warp-wide operation when ``warp_ops`` of them, spread
+    over ``sms`` SMs running side by side, take ``seconds``."""
+    return seconds * clock_mhz * 1e6 * sms / warp_ops
+
+
+def hi16(v: torch.Tensor) -> torch.Tensor:
+    """``v >> 16`` of int32 ``v`` (arithmetic), as float32."""
+    return (v >> 16).to(torch.float32)
+
+
+def lo16(v: torch.Tensor) -> torch.Tensor:
+    """The low 16 bits of int32 ``v`` sign-extended (the TPU files'
+    ``(v << 16) >> 16``, written without a signed left shift), as
+    float32."""
+    return (((v & 0xFFFF) ^ 0x8000) - 0x8000).to(torch.float32)
+
+
+def expand_steps(steps: int, *tiles: torch.Tensor):
+    """Each (rows, LANE) tile as (steps, rows, LANE): the grid steps of a
+    TPU microbenchmark all recompute the same tile."""
+    return [t.expand((steps,) + tuple(t.shape)) for t in tiles]
+
+
+def check_tile(name: str, t: torch.Tensor, shape, dtype) -> None:
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype} {tuple(shape)}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_cuda(*tensors: torch.Tensor) -> torch.device:
+    """The one CUDA device all ``tensors`` lie on; raises otherwise."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("the kernel needs every tensor on one CUDA device, "
+                         f"got {[str(t.device) for t in tensors]}")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# The gather microbenchmarks (K5-K7, and the gather bundle of K8-K9):
+# csrc/micro_gather.cu, entry points micro_gather and micro_gather_hermite.
+
+ROWS = 16
+
+
+def check_gather_args(src, src2, idx, w, int_src: bool) -> None:
+    """Shapes, types, one device, and an index tile inside the source row
+    for every offset the variants add before masking (0 .. LANE - 4): the
+    kernels read the tile at these indices.  Reads ``idx`` back (a
+    synchronise), so a timing loop checks once and launches many."""
+    dtype = torch.int32 if int_src else torch.float32
+    check_tile("src", src, (ROWS, LANE), dtype)
+    check_tile("src2", src2, (ROWS, LANE), dtype)
+    check_tile("w", w, (ROWS, LANE), torch.float32)
+    check_tile("idx", idx, (ROWS, LANE), torch.int32)
+    check_cuda(src, src2, idx, w)
+    lo, hi = int(idx.min()), int(idx.max())
+    if lo < 0 or hi > LANE - 4:
+        raise ValueError(f"idx must lie in [0, {LANE - 4}], got [{lo}, {hi}]")
+
+
+def launch_gather(variant_id: int, src, src2, idx, w, reps: int, steps: int,
+                  smem: bool) -> torch.Tensor:
+    """One launch of ``micro_gather``: ``steps`` blocks, each computing the
+    (ROWS, LANE) tile of variant ``variant_id`` over ``reps`` repetitions,
+    gathering from shared memory (``smem``) or through ``__ldg`` from
+    device memory.  Arguments checked by :func:`check_gather_args`."""
+    from ..kernels import build
+    if reps <= 0 or reps % 8 or steps <= 0:
+        raise ValueError(f"reps must be a positive multiple of 8 and steps "
+                         f"positive, got {reps}, {steps}")
+    out = torch.empty((ROWS, LANE), dtype=torch.float32, device=src.device)
+    code = build.library().micro_gather(
+        variant_id, int(smem), src.data_ptr(), src2.data_ptr(),
+        idx.data_ptr(), w.data_ptr(), out.data_ptr(), reps, steps,
+        torch.cuda.current_stream(src.device).cuda_stream)
+    build.check("micro_gather", code)
+    build.LAUNCHES["micro_gather"] += 1
+    return out
+
+
+def launch_gather_hermite(k8: bool, src, src2, idx, w, units: int,
+                          steps: int, smem: bool) -> torch.Tensor:
+    """One launch of ``micro_gather_hermite``: the DAS kernel's cubic tap
+    bundle over ``units`` units per block (K8's form with ``k8``, else
+    K9's); arguments checked by :func:`check_gather_args`."""
+    from ..kernels import build
+    if units <= 0 or units % 2 or steps <= 0:
+        raise ValueError(f"units must be a positive even count and steps "
+                         f"positive, got {units}, {steps}")
+    out = torch.empty((ROWS, LANE), dtype=torch.float32, device=src.device)
+    code = build.library().micro_gather_hermite(
+        int(k8), int(smem), src.data_ptr(), src2.data_ptr(), idx.data_ptr(),
+        w.data_ptr(), out.data_ptr(), units, steps,
+        torch.cuda.current_stream(src.device).cuda_stream)
+    build.check("micro_gather_hermite", code)
+    build.LAUNCHES["micro_gather"] += 1
+    return out
+
+
+def hermite_bundle(acc, idx, w, src, src2, off, bcast: bool):
+    """The plain DAS cubic tap bundle, as ``gather_hermite`` writes it:
+    index ``idx + off``, kept if inside the row, two int32 gathers (value
+    and slope planes) at it, each unpacked into its int16 halves and
+    weighted.  Tensors (steps, ROWS, LANE); ``bcast`` gathers row 0."""
+    rr = idx + off
+    sel = (rr >= 0) & (rr < LANE)           # the unsigned compare rr < LANE
+    rc = rr & (LANE - 1)
+    zero = torch.zeros((), dtype=w.dtype, device=w.device)
+    wp = torch.where(sel, w, zero)
+    wm = torch.where(sel, w * 0.5, zero)
+    if bcast:
+        src, src2 = (s[:, :1].expand_as(s) for s in (src, src2))
+    vp = torch.gather(src, -1, rc)
+    vm = torch.gather(src2, -1, rc)
+    return acc + wp * hi16(vp) + wm * hi16(vm) + wp * lo16(vp) + wm * lo16(vm)
+
+
+# ---------------------------------------------------------------------------
+# The one-hot matrix-product interpolation (K8, K9): csrc/micro_onehot.cu.
+
+ONEHOT_BATCHES = (8, 32, 128)
+
+
+def onehot_offset(u: int, k8: bool) -> int:
+    """Unit ``u``'s index offset: ``u & 3`` (K8) or ``4 u`` (K9)."""
+    return (u & 3) if k8 else 4 * u
+
+
+def onehot_ref(rf, k, wt, units: int, k8: bool, steps: int = 1):
+    """Plain torch: per unit the banded weight matrix
+    ``W[s, v] = sum_t wt[t, v] [s == k[0, v] + t + off(u)]`` (t = 0..3) in
+    float32, rounded to bf16, and ``acc += bf16(rf) @ W`` in float32, for
+    ``steps`` grid steps at once (the last is returned)."""
+    rf, k, wt = expand_steps(steps, rf, k, wt)
+    iota = torch.arange(LANE, dtype=torch.int32, device=rf.device)[:, None]
+    zero = torch.zeros((), dtype=torch.float32, device=rf.device)
+    rf_b = rf.to(torch.bfloat16).to(torch.float32)
+    acc = torch.zeros(rf.shape, dtype=torch.float32, device=rf.device)
+    for u in range(units):
+        wmat = torch.zeros((steps, LANE, LANE), dtype=torch.float32,
+                           device=rf.device)
+        for t in range(4):
+            kk = k[:, 0:1, :] + (t + onehot_offset(u, k8))
+            wmat = wmat + torch.where(iota == kk, wt[:, t:t + 1, :], zero)
+        acc = acc + torch.matmul(rf_b,
+                                 wmat.to(torch.bfloat16).to(torch.float32))
+    return acc[-1]
+
+
+def check_onehot_args(rf, k, wt) -> None:
+    if rf.dim() != 2 or rf.shape[0] not in ONEHOT_BATCHES:
+        raise ValueError(f"rf must be (B, {LANE}) with B in {ONEHOT_BATCHES},"
+                         f" got {tuple(rf.shape)}")
+    check_tile("rf", rf, (rf.shape[0], LANE), torch.float32)
+    check_tile("k", k, (8, LANE), torch.int32)
+    check_tile("wt", wt, (8, LANE), torch.float32)
+    check_cuda(rf, k, wt)
+
+
+def launch_onehot(rf, k, wt, units: int, k8: bool, steps: int):
+    """One launch of ``micro_onehot``: ``steps`` blocks, each the (B, LANE)
+    tile over ``units`` units; arguments checked by
+    :func:`check_onehot_args`."""
+    from ..kernels import build
+    if units <= 0 or steps <= 0:
+        raise ValueError(f"units and steps must be positive, got {units}, "
+                         f"{steps}")
+    out = torch.empty(rf.shape, dtype=torch.float32, device=rf.device)
+    code = build.library().micro_onehot(
+        rf.shape[0], int(k8), rf.data_ptr(), k.data_ptr(), wt.data_ptr(),
+        out.data_ptr(), units, steps,
+        torch.cuda.current_stream(rf.device).cuda_stream)
+    build.check("micro_onehot", code)
+    build.LAUNCHES["micro_onehot"] += 1
+    return out
+
+
+def onehot(rf, k, wt, units: int, k8: bool, steps: int):
+    """The one-hot tile: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if rf.is_cuda:
+        check_onehot_args(rf, k, wt)
+        return launch_onehot(rf, k, wt, units, k8, steps)
+    if rf.device.type != "cpu":
+        raise ValueError(f"no kernel for device {rf.device}")
+    return onehot_ref(rf, k, wt, units, k8)
+
+
+def onehot_build_ops(units: int, steps: int) -> float:
+    """CUDA-core operations of the W builds: per entry and tap a compare, a
+    select and an add, and a bf16 rounding per entry (13 per entry)."""
+    return 13.0 * LANE * LANE * units * steps
+
+
+def onehot_mma_ops(batch: int, units: int, steps: int) -> float:
+    """bf16 tensor-core operations: 2 B 128^2 per unit."""
+    return 2.0 * batch * LANE * LANE * units * steps
+
+
+def gather_hermite_ref(src, src2, idx, w, units: int, k8: bool,
+                       steps: int = 1) -> torch.Tensor:
+    """Plain torch: the DAS cubic-tap bundle over ``units`` units (the TPU
+    bodies ``gather_kernel`` of K8 and ``make_gather.kernel`` of K9): per
+    unit two positions at offset ``pos + (u & 3)`` from row 0 (K8) or
+    ``pos + 2 u`` from the own row (K9), into chain ``(2 u + pos) & 3``."""
+    src, src2, idx, w = expand_steps(steps, src, src2, idx, w)
+    accs = [torch.zeros(w.shape, dtype=torch.float32, device=w.device)] * 4
+    for u in range(units):
+        for pos in range(2):
+            off = pos + ((u & 3) if k8 else 2 * u)
+            a = (u * 2 + pos) & 3
+            accs[a] = hermite_bundle(accs[a], idx, w, src, src2, off,
+                                     bcast=k8)
+    return (accs[0] + accs[1] + accs[2] + accs[3])[-1]
+
+
+def gather_hermite(src, src2, idx, w, units: int, k8: bool, steps: int,
+                   smem: bool = True) -> torch.Tensor:
+    """The cubic-tap bundle's tile: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if src.is_cuda:
+        check_gather_args(src, src2, idx, w, True)
+        return launch_gather_hermite(k8, src, src2, idx, w, units, steps,
+                                     smem)
+    if src.device.type != "cpu":
+        raise ValueError(f"no kernel for device {src.device}")
+    return gather_hermite_ref(src, src2, idx, w, units, k8)
+
+
+# operations of the cubic-tap bundle per element and position: index add,
+# compare, mask, two selects, w * 0.5, two gathers, two unpacks of five
+# (two shifts, a shift, two converts), four multiplies and four adds
+HERMITE_OPS_PER_POSITION = 26
+
+
+def sass_loads(library_path) -> dict:
+    """Static counts of shared-memory loads (``LDS``) and device-memory
+    loads (``LDG``) in each gather kernel of the built library, from
+    ``cuobjdump -sass``: ``{(variant id, shared memory): (LDS, LDG)}`` for
+    ``gather_kernel`` and ``{("hermite K8" | "hermite K9", shared memory):
+    ...}`` for ``hermite_kernel``.  The repetition loop's body holds 8
+    repetitions of 2 elements, so a variant whose gathers all survive
+    compilation shows 16 loads per gather of its bundle there."""
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
+        / "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(library_path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts: dict = {}
+    key = None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            m = re.search(r"gather_kernelILi(\d+)ELb([01])E", name)
+            h = re.search(r"hermite_kernelILb([01])ELb([01])E", name)
+            if m:
+                key = (int(m.group(1)), m.group(2) == "1")
+            elif h:
+                key = ("hermite K8" if h.group(1) == "1" else "hermite K9",
+                       h.group(2) == "1")
+            else:
+                key = None
+            if key is not None:
+                counts[key] = [0, 0]
+        elif key is not None:
+            op = line.split("*/", 1)[-1].strip()
+            if re.match(r"(@!?U?P\w+\s+)?LDS(\.|\s)", op):
+                counts[key][0] += 1
+            elif re.match(r"(@!?U?P\w+\s+)?LDG(\.|\s)", op):
+                counts[key][1] += 1
+    return {k: tuple(v) for k, v in counts.items()}

@@ -34,7 +34,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: collections.Counter = collections.Counter()
 """Kernel launches in this process by kernel name: ``decode_hadamard``,
 ``das_forces``, ``das_hercules``, ``das_rca`` (and ``das_*_fb4``, a launch
-of four frames of a batch), ``demodulate``, ``fir``."""
+of four frames of a batch), ``demodulate``, ``fir``, and the
+microbenchmarks' ``micro_gather`` (K5-K7 and the gather bundle of K8-K9),
+``micro_onehot`` (K8-K9) and ``micro_i8`` (K10-K11)."""
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,6 +60,17 @@ SIGNATURES = {
     # x, taps (re | im), out,
     # rows, S, n_out, L, D, complex input, complex taps, stream
     "fir": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # microbenchmarks (experiments/): variant, shared memory, src, src2,
+    # idx, w, out, reps, steps, stream
+    "micro_gather": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _P],
+    # K8 form, shared memory, src, src2, idx, w, out, units, steps, stream
+    "micro_gather_hermite": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _P],
+    # B, K8 form, rf, k, wt, out, units, steps, stream
+    "micro_onehot": [_I, _I, _P, _P, _P, _P, _I, _I, _P],
+    # body, a (int8 K x K), b, out, K, N, scale, stream
+    "micro_i8_mma": [_I, _P, _P, _P, _I, _I, _F, _P],
+    # body, h, x, out, K, N, stream
+    "micro_i8_elementwise": [_I, _P, _P, _P, _I, _I, _P],
 }
 
 

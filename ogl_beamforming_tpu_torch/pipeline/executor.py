@@ -342,6 +342,45 @@ class Beamformer:
             self.stats.record_frame(stage_times)
         return self._register_frame(out, ViewPlaneTag(image_plane_tag))
 
+    def profile_device_stages(self, rf: np.ndarray, block: int = 0,
+                              record: bool = False):
+        """Per-stage DEVICE times of the block's plan from a
+        ``torch.profiler`` trace (``utils/profiling.py``), the counterpart of
+        the reference bracketing every dispatch with GPU timestamps
+        (vulkan.c:2616-2637).
+
+        ``rf``: canonical (C, A, S_wire) data, uploaded once.  After an
+        untraced warm-up, one frame runs under the profiler with an
+        annotation at the end of each stage; a kernel belongs to the stage
+        during which it was launched (its launch call shares the kernel's
+        correlation id in the trace).  Returns a list of
+        ``(ShaderKind, device_seconds)``; ``record=True`` also puts the
+        times into the stats table as one frame.  On the CPU every time is
+        0.0 (no kernel events)."""
+        from ..utils.profiling import device_time
+        b = self._block(block)
+        plan = self._ensure_plan(b)
+        x = torch.from_numpy(np.ascontiguousarray(rf)).to(self.device)
+        marks = [f"stage_end:{i}" for i in range(len(plan.descriptor.stages))]
+
+        def frame(x):
+            ends = iter(marks)
+
+            def mark():
+                with torch.profiler.record_function(next(ends)):
+                    pass
+
+            return plan(x, mark=mark)
+
+        prof = device_time(frame, x)
+        seconds = prof.split(marks) if prof.kernels else [0.0] * len(marks)
+        times = [(sd.kind, t) for sd, t in zip(plan.descriptor.stages,
+                                                seconds)]
+        if record:
+            with self._frame_lock:
+                self.stats.record_frame(seconds)
+        return times
+
     def _register_frame(self, out, view_plane) -> Frame:
         with self._frame_lock:
             frame = Frame(data=out, id=self._frame_id, view_plane=view_plane)

@@ -363,3 +363,130 @@ def test_push_batch_cuda_matches_cpu(dev):
             outs.append(np.stack([f.to_numpy() for f in bf.push_batch(raw)]))
         assert np.abs(outs[0]).max() > 0
         assert nrmse(outs[0], outs[1]) <= 1e-4
+
+
+# --- microbenchmark kernels (K5-K11) against their plain versions --------
+# Gather-and-add variants and the int8 probes are bit-equal; the variants
+# that multiply may contract to FMA (an ulp), and the one-hot product sums
+# in another order: NRMSE 1e-6.
+
+_MICRO_ADD_ONLY = {"clip", "mod", "raw", "f32_direct", "i32_direct",
+                   "bcast_hoist", "bcast_chunk"}
+
+
+def _micro_close(out, ref, exact):
+    out, ref = out.cpu().numpy(), ref.cpu().numpy()
+    assert out.shape == ref.shape and np.isfinite(out).all()
+    if exact:
+        np.testing.assert_array_equal(out, ref)
+    else:
+        assert nrmse(ref, out) <= 1e-6
+
+
+def _gather_cases():
+    from ogl_beamforming_tpu_torch.experiments import (gather_micro,
+                                                       gather_micro2,
+                                                       gather_micro3)
+    return ([("k5", v, r) for v in gather_micro.VARIANTS for r in (64,)]
+            + [("k6", v, r) for v in gather_micro2.VARIANTS for r in (64,)]
+            + [("k7", v, r) for v in gather_micro3.VARIANTS
+               for r in (32, 224)])
+
+
+@pytest.mark.parametrize("smem", [True, False])
+@pytest.mark.parametrize("case", _gather_cases(),
+                         ids=lambda c: "-".join(map(str, c)))
+def test_micro_gather_kernel_matches_plain(dev, case, smem):
+    from ogl_beamforming_tpu_torch.experiments import (gather_micro,
+                                                       gather_micro2,
+                                                       gather_micro3)
+    k, variant, reps = case
+    before = build.LAUNCHES["micro_gather"]
+    if k == "k5":
+        x = gather_micro.make_inputs(dev)
+        out = gather_micro.kernel(variant, x["src"], x["idx"], reps, steps=3,
+                                  smem=smem)
+        ref = gather_micro.kernel_ref(variant, x["src"], x["idx"], reps)
+    else:
+        mod = gather_micro2 if k == "k6" else gather_micro3
+        x = mod.make_inputs(dev)
+        src, src2 = x[variant] if k == "k6" else mod.sources(variant, x)
+        out = mod.kernel(variant, src, src2, x["idx"], x["w"], reps, steps=3,
+                         smem=smem)
+        ref = mod.kernel_ref(variant, src, src2, x["idx"], x["w"], reps)
+    assert build.LAUNCHES["micro_gather"] == before + 1
+    _micro_close(out, ref, variant in _MICRO_ADD_ONLY)
+
+
+@pytest.mark.parametrize("smem", [True, False])
+@pytest.mark.parametrize("k8", [True, False])
+def test_micro_gather_hermite_matches_plain(dev, k8, smem):
+    from ogl_beamforming_tpu_torch.experiments import onehot_micro, \
+        onehot_micro2
+    mod = onehot_micro if k8 else onehot_micro2
+    x = onehot_micro.make_inputs(dev)
+    args = (x["src"], x["src2"], x["idx"], x["w"])
+    out = mod.gather_kernel(*args, units=12, steps=3, smem=smem)
+    _micro_close(out, mod.gather_kernel_ref(*args, units=12), False)
+
+
+@pytest.mark.parametrize("batch", [8, 32, 128])
+@pytest.mark.parametrize("k8", [True, False])
+def test_micro_onehot_matches_plain(dev, k8, batch):
+    from ogl_beamforming_tpu_torch.experiments import onehot_micro, \
+        onehot_micro2
+    mod = onehot_micro if k8 else onehot_micro2
+    x = onehot_micro.make_inputs(dev)
+    args = (x[f"rf{batch}"], x["kvox"], x["wt4"])
+    before = build.LAUNCHES["micro_onehot"]
+    out = mod.onehot_kernel(*args, units=12, steps=3)
+    assert build.LAUNCHES["micro_onehot"] == before + 1
+    _micro_close(out, mod.onehot_kernel_ref(*args, units=12), False)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.int32, torch.float32])
+def test_micro_probe_i8_exact(dev, out_dtype):
+    from ogl_beamforming_tpu_torch.experiments import probe_i8
+    x = probe_i8.make_inputs(dev)
+    out = probe_i8.kernel2(x["a"], x["b"], out_dtype)
+    assert out.dtype == out_dtype
+    exact = x["a"].cpu().to(torch.int64) @ x["b"].cpu().to(torch.int64)
+    np.testing.assert_array_equal(out.cpu().to(torch.int64).numpy(),
+                                  exact.numpy())
+
+
+@pytest.mark.parametrize("shape", [(16, 256), (128, 128 * 64)])
+@pytest.mark.parametrize("body", ["shift", "split8", "dot", "rowsum", "full"])
+def test_micro_probe_i8b_exact(dev, body, shape):
+    from ogl_beamforming_tpu_torch.experiments import probe_i8b
+    x = probe_i8b.make_inputs(dev, *shape)
+    before = build.LAUNCHES["micro_i8"]
+    out = probe_i8b.k(body, x["h"], x["x"])
+    assert build.LAUNCHES["micro_i8"] == before + 1
+    assert torch.equal(out, probe_i8b.k_ref(body, x["h"], x["x"]))
+    if body == "full":
+        np.testing.assert_array_equal(
+            out.cpu().numpy().astype(np.float64),
+            probe_i8b.full_exact(x["h"], x["x"]))
+
+
+def test_device_time_on_the_card(dev):
+    from ogl_beamforming_tpu_torch.utils.profiling import device_time
+    x = torch.ones((1024, 1024), device=dev)
+    prof = device_time(lambda t: t @ t, x)
+    assert prof.module_seconds > 0.0 and prof.kernel_count >= 1
+    assert 0.0 < prof.busy_share <= 1.0
+
+
+def test_profile_device_stages_on_the_card(dev):
+    p, pipe = presets.forces_compounding(
+        channel_count=8, transmit_count=4, sample_count=512,
+        output_points=(12, 16), demodulate=False)
+    bf = Beamformer(device=dev)
+    bf.push_parameters(p)
+    bf.push_pipeline(pipe.shaders, pipe.data_kind)
+    rf = np.random.default_rng(4).integers(-512, 512, (8, 4, 512)
+                                           ).astype(np.int16)
+    times = bf.profile_device_stages(rf, record=True)
+    assert [k for k, _ in times] == [ShaderKind.Decode, ShaderKind.DAS]
+    assert all(t > 0.0 for _, t in times)

@@ -1,0 +1,226 @@
+"""The port's microbenchmark bodies (``ogl_beamforming_tpu_torch.
+experiments``, K5-K11) against the JAX package's Pallas bodies themselves.
+
+Each ``experiments/<file>.main()`` runs once with ``pl.pallas_call``
+replaced by a stub that records ``(kernel, grid, out_shape)`` and returns
+zeros, so no Pallas program is built or interpreted.  Each recorded body
+then runs eagerly under JAX on the CPU with numpy arrays as its refs, on the
+inputs the port's ``make_inputs`` draws, and the port's plain version (its
+wrapper on CPU tensors) gets the same inputs.
+
+Tolerances: the variants that only gather and add, and both int8 probes,
+are bit-equal (the same integer or float32 additions in the same order);
+the variants that multiply, and the one-hot products, are within NRMSE
+1e-6 (the same float32 operations, summed in another order in the one-hot
+product).
+"""
+
+import contextlib
+import importlib
+import io
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from helpers import nrmse
+
+from ogl_beamforming_tpu_torch.experiments import ONEHOT_BATCHES
+from ogl_beamforming_tpu_torch.experiments import gather_micro as k5
+from ogl_beamforming_tpu_torch.experiments import gather_micro2 as k6
+from ogl_beamforming_tpu_torch.experiments import gather_micro3 as k7
+from ogl_beamforming_tpu_torch.experiments import onehot_micro as k8
+from ogl_beamforming_tpu_torch.experiments import onehot_micro2 as k9
+from ogl_beamforming_tpu_torch.experiments import probe_i8 as k10
+from ogl_beamforming_tpu_torch.experiments import probe_i8b as k11
+
+FILES = ("gather_micro", "gather_micro2", "gather_micro3", "onehot_micro",
+         "onehot_micro2", "probe_i8", "probe_i8b")
+PORT = dict(zip(FILES, (k5, k6, k7, k8, k9, k10, k11)))
+ADD_ONLY = {"clip", "mod", "raw", "f32_direct", "i32_direct", "bcast_hoist",
+            "bcast_chunk"}
+
+
+@pytest.fixture(scope="module")
+def bodies():
+    """file -> the (kernel, grid, out_shape) its main() hands pallas_call,
+    in call order."""
+    recorded = {}
+    orig = pl.pallas_call
+    try:
+        for name in FILES:
+            calls = recorded[name] = []
+
+            def stub(kernel, *args, out_shape=None, grid=None, calls=calls,
+                     **kw):
+                calls.append((kernel, grid, out_shape))
+                return lambda *a: jnp.zeros(out_shape.shape, out_shape.dtype)
+
+            pl.pallas_call = stub
+            mod = importlib.import_module(f"experiments.{name}")
+            with contextlib.redirect_stdout(io.StringIO()):
+                mod.main()
+    finally:
+        pl.pallas_call = orig
+    return recorded
+
+
+def run_body(kernel, out_shape, *inputs):
+    """A Pallas body run eagerly on numpy refs; returns its output ref."""
+    out = np.zeros(out_shape.shape, out_shape.dtype)
+    with jax.default_device(jax.devices("cpu")[0]):
+        kernel(*[np.asarray(x) for x in inputs], out)
+    return out
+
+
+def numpy_of(inputs: dict) -> dict:
+    return {k: (tuple(t.numpy() for t in v) if isinstance(v, tuple)
+                else v.numpy()) for k, v in inputs.items()}
+
+
+def check(port, ref, exact: bool):
+    port = port.numpy() if isinstance(port, torch.Tensor) else port
+    assert port.shape == ref.shape
+    assert np.isfinite(port).all() and np.abs(ref).max() > 0
+    if exact:
+        np.testing.assert_array_equal(port, ref)
+    else:
+        assert nrmse(ref, port) <= 1e-6
+
+
+def test_every_file_hands_its_bodies_over(bodies):
+    counts = {name: len(calls) for name, calls in bodies.items()}
+    assert counts == {"gather_micro": 4, "gather_micro2": 8,
+                      "gather_micro3": 15, "onehot_micro": 4,
+                      "onehot_micro2": 12, "probe_i8": 2, "probe_i8b": 5}
+    assert bodies["gather_micro3"][0][1] == (k7.STEPS,)
+    assert bodies["onehot_micro2"][0][1] == (k9.STEPS,)
+
+
+@pytest.mark.parametrize("i", range(len(k5.VARIANTS)),
+                         ids=list(k5.VARIANTS))
+def test_gather_micro_k5(bodies, i):
+    variant = k5.VARIANTS[i]
+    kernel, grid, out_shape = bodies["gather_micro"][i]
+    assert grid == (k5.STEPS,)
+    x = k5.make_inputs("cpu")
+    ref = run_body(kernel, out_shape, x["src"].numpy(), x["idx"].numpy())
+    check(k5.kernel(variant, x["src"], x["idx"]), ref, variant in ADD_ONLY)
+
+
+@pytest.mark.parametrize("i", range(len(k6.VARIANTS)),
+                         ids=list(k6.VARIANTS))
+def test_gather_micro2_k6(bodies, i):
+    variant = k6.VARIANTS[i]
+    kernel, grid, out_shape = bodies["gather_micro2"][i]
+    assert grid == (k6.STEPS,)
+    x = k6.make_inputs("cpu")
+    src, src2 = x[variant]
+    ref = run_body(kernel, out_shape, src.numpy(), src2.numpy(),
+                   x["idx"].numpy(), x["w"].numpy())
+    check(k6.kernel(variant, src, src2, x["idx"], x["w"]), ref,
+          variant in ADD_ONLY)
+
+
+K7_CASES = [(v, reps) for v in k7.VARIANTS for reps in k7.REPS_SWEEP]
+
+
+@pytest.mark.parametrize("i", range(len(K7_CASES)),
+                         ids=[f"{v}-{r}" for v, r in K7_CASES])
+def test_gather_micro3_k7(bodies, i):
+    variant, reps = K7_CASES[i]
+    kernel, grid, out_shape = bodies["gather_micro3"][i]
+    assert grid == (k7.STEPS,)
+    x = k7.make_inputs("cpu")
+    src, src2 = k7.sources(variant, x)
+    ref = run_body(kernel, out_shape, src.numpy(), src2.numpy(),
+                   x["idx"].numpy(), x["w"].numpy())
+    check(k7.kernel(variant, src, src2, x["idx"], x["w"], reps), ref,
+          variant in ADD_ONLY)
+
+
+def _onehot_cases(units_sweep):
+    return ([("gather", u) for u in units_sweep]
+            + [(b, u) for b in ONEHOT_BATCHES for u in units_sweep])
+
+
+def _check_onehot_file(name, mod, bodies, i, units, case):
+    kernel, _, out_shape = bodies[name][i]
+    x = mod.make_inputs("cpu")
+    if case == "gather":
+        args = (x["src"], x["src2"], x["idx"], x["w"])
+        port = mod.gather_kernel(*args, units=units)
+    else:
+        args = (x[f"rf{case}"], x["kvox"], x["wt4"])
+        port = mod.onehot_kernel(*args, units=units)
+    ref = run_body(kernel, out_shape, *[t.numpy() for t in args])
+    check(port, ref, exact=False)
+
+
+K8_CASES = _onehot_cases((k8.UNITS,))
+
+
+@pytest.mark.parametrize("i", range(len(K8_CASES)),
+                         ids=[str(c) for c, _ in K8_CASES])
+def test_onehot_micro_k8(bodies, i):
+    case, units = K8_CASES[i]
+    _check_onehot_file("onehot_micro", k8, bodies, i, units, case)
+
+
+K9_CASES = _onehot_cases(k9.UNITS_SWEEP)
+
+
+@pytest.mark.parametrize("i", range(len(K9_CASES)),
+                         ids=[f"{c}-{u}" for c, u in K9_CASES])
+def test_onehot_micro2_k9(bodies, i):
+    case, units = K9_CASES[i]
+    _check_onehot_file("onehot_micro2", k9, bodies, i, units, case)
+
+
+@pytest.mark.parametrize("i", range(len(k10.BODIES)), ids=list(k10.BODIES))
+def test_probe_i8_k10(bodies, i):
+    name, od = list(k10.BODIES.items())[i]
+    kernel, _, out_shape = bodies["probe_i8"][i]
+    x = k10.make_inputs("cpu")
+    a, b = x["a"].numpy(), x["b"].numpy()
+    ref = run_body(kernel, out_shape, a, b)
+    port = k10.kernel2(x["a"], x["b"], od)
+    check(port, ref, exact=True)
+    exact = a.astype(np.int64) @ b.astype(np.int64)
+    np.testing.assert_array_equal(port.numpy().astype(np.int64), exact)
+
+
+@pytest.mark.parametrize("i", range(len(k11.BODIES)), ids=list(k11.BODIES))
+def test_probe_i8b_k11(bodies, i):
+    body = k11.BODIES[i]
+    kernel, _, out_shape = bodies["probe_i8b"][i]
+    x = k11.make_inputs("cpu")
+    ref = run_body(kernel, out_shape, x["h"].numpy(), x["x"].numpy())
+    port = k11.k(body, x["h"], x["x"])
+    check(port, ref, exact=True)
+    if body == "full":
+        np.testing.assert_array_equal(port.numpy().astype(np.float64),
+                                      k11.full_exact(x["h"], x["x"]))
+
+
+def test_probe_i8b_full_exact_over_the_int16_range():
+    """The split X = 256 hi + lo + 128 is exact at the int16 extremes."""
+    x = torch.tensor([[-32768, -32767, -1, 0, 1, 255, 256, 32767]] * 16,
+                     dtype=torch.int16).repeat(1, 8)
+    h = k11.make_inputs("cpu")["h"]
+    np.testing.assert_array_equal(k11.k("full", h, x).numpy(),
+                                  k11.full_exact(h, x))
+
+
+@pytest.mark.parametrize("name", FILES)
+def test_main_needs_a_gpu(name, monkeypatch):
+    """Every main() measures the card: RuntimeError without one, and for a
+    CPU device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        PORT[name].main()
+    with pytest.raises(RuntimeError):
+        PORT[name].main(device="cpu")

@@ -545,11 +545,19 @@ def test_port_imports_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
         "import ogl_beamforming_tpu_torch as pkg\n"
+        "names = set()\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    names.add(m.name)\n"
+        "want = {'ogl_beamforming_tpu_torch.utils.profiling'} | {\n"
+        "    'ogl_beamforming_tpu_torch.experiments.' + n for n in (\n"
+        "        'gather_micro', 'gather_micro2', 'gather_micro3',\n"
+        "        'onehot_micro', 'onehot_micro2', 'probe_i8', 'probe_i8b')}\n"
+        "assert want <= names, want - names\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "bad = [m for m in sys.modules if m == 'ogl_beamforming_tpu'\n"
-        "       or m.startswith('ogl_beamforming_tpu.')]\n"
+        "       or m.startswith('ogl_beamforming_tpu.')\n"
+        "       or m == 'experiments' or m.startswith('experiments.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)

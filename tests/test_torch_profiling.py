@@ -1,0 +1,158 @@
+"""The port's trace-based device timing (``utils/profiling.py``) and
+``Beamformer.profile_device_stages`` on the CPU, mirroring
+``tests/test_profiling.py``: the parser against a synthetic Chrome trace in
+``torch.profiler``'s layout, and the zero device time of CPU work (a CPU
+trace holds no kernel events).  Device times need the card:
+``tests/test_torch_cuda.py`` checks them there."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from ogl_beamforming_tpu_torch import (AcquisitionKind, DataKind,
+                                       InterpolationMode, Parameters,
+                                       ShaderKind)
+from ogl_beamforming_tpu_torch.pipeline.executor import Beamformer
+from ogl_beamforming_tpu_torch.utils import profiling
+from ogl_beamforming_tpu_torch.utils.profiling import (DeviceProfile,
+                                                       _parse_trace,
+                                                       device_time)
+from ogl_beamforming_tpu_torch.utils.transforms import das_transform_2d_xz
+
+
+def _write_trace(tmpdir, events, name="host.pt.trace.json"):
+    with open(os.path.join(tmpdir, name), "w") as f:
+        json.dump({"traceEvents": events}, f)
+
+
+def test_parse_trace_sums_kernels_by_name(tmp_path):
+    events = [
+        {"ph": "M", "pid": 0, "name": "process_name",
+         "args": {"name": "python3"}},
+        # host events, ignored whatever their names
+        {"ph": "X", "cat": "cpu_op", "name": "aten::matmul", "pid": 11,
+         "tid": 11, "ts": 0.0, "dur": 900.0},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+         "pid": 11, "tid": 11, "ts": 1.0, "dur": 5.0,
+         "args": {"correlation": 7}},
+        {"ph": "X", "cat": "user_annotation", "name": "das_forces_kernel",
+         "pid": 11, "tid": 11, "ts": 0.0, "dur": 999.0},
+        # device events: kernels summed by name, copies apart
+        {"ph": "X", "cat": "kernel", "name": "das_forces_kernel", "pid": 0,
+         "tid": 7, "ts": 10.0, "dur": 100.0, "args": {"correlation": 7}},
+        {"ph": "X", "cat": "kernel", "name": "decode_kernel<short>",
+         "pid": 0, "tid": 7, "ts": 120.0, "dur": 20.0},
+        {"ph": "X", "cat": "Kernel", "name": "decode_kernel<short>",
+         "pid": 0, "tid": 7, "ts": 150.0, "dur": 30.0},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD (Pageable -> "
+         "Device)", "pid": 0, "tid": 7, "ts": 0.0, "dur": 8.0},
+        {"ph": "X", "cat": "gpu_memset", "name": "Memset (Device)",
+         "pid": 0, "tid": 7, "ts": 9.0, "dur": 1.0},
+        {"ph": "f", "cat": "ac2g", "name": "ac2g", "pid": 0, "tid": 7,
+         "ts": 10.0, "id": 7},
+    ]
+    _write_trace(str(tmp_path), events)
+    prof = _parse_trace(str(tmp_path))
+    assert abs(prof.module_seconds - 150e-6) < 1e-12
+    assert abs(prof.op_seconds["das_forces_kernel"] - 100e-6) < 1e-12
+    assert abs(prof.op_seconds["decode_kernel<short>"] - 50e-6) < 1e-12
+    assert abs(prof.copy_seconds - 9e-6) < 1e-12
+    assert set(prof.op_seconds) == {"das_forces_kernel",
+                                    "decode_kernel<short>"}
+    assert prof.kernel_count == 3
+    assert prof.top_ops[0][0] == "das_forces_kernel"
+
+
+def test_parse_trace_without_a_trace_raises(tmp_path):
+    with pytest.raises(RuntimeError, match="no trace"):
+        _parse_trace(str(tmp_path))
+
+
+def test_card_work_without_kernel_events_raises(monkeypatch):
+    """Work on the card must show kernel events: none is an error, never a
+    device time of 0."""
+    monkeypatch.setattr(profiling, "_on_card", lambda values: True)
+    with pytest.raises(RuntimeError, match="no CUDA kernel events"):
+        device_time(lambda x: x * 2.0, torch.ones(8))
+
+
+def test_split_attributes_kernels_by_launch(tmp_path):
+    """A kernel belongs to the segment during which it was launched: the
+    launch call shares its correlation id, and annotations close
+    segments."""
+    events = [
+        {"ph": "X", "cat": "user_annotation", "name": "stage_end:0",
+         "ts": 100.0, "dur": 1.0},
+        {"ph": "X", "cat": "user_annotation", "name": "stage_end:1",
+         "ts": 200.0, "dur": 1.0},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+         "ts": 50.0, "dur": 2.0, "args": {"correlation": 1}},
+        {"ph": "X", "cat": "cuda_driver", "name": "cuLaunchKernel",
+         "ts": 150.0, "dur": 2.0, "args": {"correlation": 2}},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+         "ts": 160.0, "dur": 2.0, "args": {"correlation": 3}},
+        # device time runs late: the launch, not the kernel, decides
+        {"ph": "X", "cat": "kernel", "name": "decode", "ts": 180.0,
+         "dur": 40.0, "args": {"correlation": 1}},
+        {"ph": "X", "cat": "kernel", "name": "das", "ts": 230.0,
+         "dur": 300.0, "args": {"correlation": 2}},
+        {"ph": "X", "cat": "kernel", "name": "cast", "ts": 540.0,
+         "dur": 5.0, "args": {"correlation": 3}},
+    ]
+    _write_trace(str(tmp_path), events)
+    prof = _parse_trace(str(tmp_path))
+    marks = ["stage_end:0", "stage_end:1"]
+    got = prof.split(marks)
+    assert abs(got[0] - 40e-6) < 1e-12 and abs(got[1] - 305e-6) < 1e-12
+    events.append({"ph": "X", "cat": "kernel", "name": "orphan", "ts": 9.0,
+                   "dur": 1.0, "args": {"correlation": 99}})
+    _write_trace(str(tmp_path), events, name="later.json")
+    with pytest.raises(RuntimeError, match="no launch event"):
+        _parse_trace(str(tmp_path)).split(marks)
+
+
+def test_device_time_runs_on_cpu():
+    calls = []
+
+    def fn(x):
+        calls.append(1)
+        return (x * 2.0).sum()
+
+    prof = device_time(fn, torch.ones((64, 64)))
+    assert isinstance(prof, DeviceProfile)
+    assert len(calls) == 2                  # one warm-up, one traced
+    assert prof.module_seconds == 0.0 and prof.op_seconds == {}
+    assert prof.window_seconds > 0.0 and prof.busy_share == 0.0
+
+
+def test_profile_device_stages_cpu():
+    """One entry per stage of the plan, 0.0 each on the CPU, recorded as one
+    row of the stats table when asked; the frame is unaffected."""
+    c, a, s, pitch = 8, 4, 256, 0.3e-3
+    p = Parameters(
+        sample_count=s, channel_count=c, acquisition_count=a,
+        sampling_frequency=20e6, demodulation_frequency=5e6,
+        speed_of_sound=1500.0, f_number=0.8,
+        acquisition_kind=AcquisitionKind.FORCES,
+        interpolation_mode=InterpolationMode.Linear,
+        das_voxel_transform=das_transform_2d_xz([0, 1e-3],
+                                                [(c - 1) * pitch, 8e-3]),
+        xdc_element_pitch=np.array([pitch, pitch], np.float32),
+        output_points=np.array([12, 16, 1, 0], np.int32))
+    bf = Beamformer(device="cpu")
+    bf.push_parameters(p)
+    bf.push_pipeline([ShaderKind.Decode, ShaderKind.DAS], DataKind.Int16)
+    raw = np.random.default_rng(3).integers(-512, 512, (c, a * s)
+                                            ).astype(np.int16)
+    before = bf.push_data_with_compute(raw).to_numpy()
+    times = bf.profile_device_stages(raw.reshape(c, a, s), record=True)
+    assert [k for k, _ in times] == [ShaderKind.Decode, ShaderKind.DAS]
+    assert all(t == 0.0 for _, t in times)
+    row = (bf.stats._frame_index - 1) % 32
+    assert bf.stats._frame_index == 2
+    assert list(bf.stats.table.times[row, :2]) == [0.0, 0.0]
+    np.testing.assert_array_equal(bf.push_data_with_compute(raw).to_numpy(),
+                                  before)
