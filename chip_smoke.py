@@ -12,12 +12,18 @@ line:
   1. device   a CUDA device must be present; prints its name and
               ``nvidia-smi`` name/power limit.
   2. build    compiles csrc/*.cu with nvcc for sm_90a (kernels/build.py),
-              one nvcc per source, all started together.
+              one nvcc per source, all started together; prints the decode
+              kernels' registers and the static SASS instructions per pair
+              of das_forces_kernel's pair loop (kernels/sass.py).
   3. kernels  each kernel against its plain-torch twin on the card at its
               path's shapes: int16 decode (128, 128, 4096), (128, 128,
               2048) at path C and (256, 64, 2048) at path D bit-equal, an
-              order-12 and a float32 decode to 1e-6 of the peak, FORCES
+              order-12 and a float32 decode to 1e-6 of the peak, the
+              complex64 decode at path B's shape (128, 128, 2048 complex;
+              the float32 kernel) to 1e-6 of the peak, FORCES
               cubic DAS 128 ch x 128 tx x 4096 samples -> 512 x 1024 voxels,
+              the four-frame FORCES launch at that shape against
+              single-frame launches (1e-6),
               FORCES cubic IQ DAS at path B's DAS stage (complex64 128 x 128
               x 2048 at 20 MHz, the filter's delay in the time offset) and
               RCA Flash cubic IQ DAS 256 ch x 1 x 4096 complex samples ->
@@ -34,7 +40,9 @@ line:
               interquartile range of 21 runs), its twin (median of 5) and,
               where one PyTorch call computes the same function, that call
               (median of 21); and each kernel's bound from its bytes and
-              operations.
+              operations; for each FORCES DAS row the kernel's registers,
+              resident warps per SM, SASS instructions per pair and its
+              time at each pass of the index table (8 and 32 transmits).
   4. canary   reduced configurations through Beamformer(device="cuda")
               against the NumPy golden oracle, NRMSE <= 1e-3: FORCES decode
               -> DAS, one frame and a batch of two through push_batch; path
@@ -95,6 +103,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import re
 import statistics
 import subprocess
 import time
@@ -109,26 +118,30 @@ TIMED_RUNS = 21   # timed runs of a kernel or library call
 # memory rate and float32 rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12     # dense tensor-core rates
+PEAK_INT8_PER_S = 1979e12
 
 # float32 operations per active pair of a DAS kernel, counted from
 # csrc/das.cu (a square root, division, cosine or sincos counts as one):
-# FORCES real cubic: transmit leg 5, index 1, cubic tap 26, weights and sum 3;
-# FORCES IQ cubic: transmit leg 5, index 1, complex cubic tap 35, rotation 10,
-# weights and sum 5; RCA IQ cubic: receive leg 16, complex cubic tap 35,
-# rotation 10, scale and sum 4.
-OPS_FORCES_REAL_CUBIC = 35
-OPS_FORCES_IQ_CUBIC = 56
+# FORCES real cubic: index 1, cubic tap 26, weights and sum 3; FORCES IQ
+# cubic: index 1, complex cubic tap 35, rotation 10, weights and sum 5; RCA
+# IQ cubic: receive leg 16, complex cubic tap 35, rotation 10, scale and sum
+# 4.  The FORCES transmit leg (a square root, two products and a sum: 5)
+# is paid once per (voxel, transmit), not per pair.
+OPS_FORCES_REAL_CUBIC = 30
+OPS_FORCES_IQ_CUBIC = 51
+OPS_FORCES_TX_LEG = 5
 OPS_RCA_IQ_CUBIC = 65
 # HERCULES real linear, per (voxel, channel, transmit) triple inside the 2D
 # mask: transmit distance and mask 4, apodization 6 (square root, two
 # products, cosine, square, weight), index 4, linear tap 8, scale and sum 2.
-# FORCES real linear with the incoherent sum: transmit leg 5, index 1,
-# linear tap 8, weights and sum 3, incoherent sum 2.  A four-frame RCA IQ
+# FORCES real linear with the incoherent sum: index 1, linear tap 8,
+# weights and sum 3, incoherent sum 2.  A four-frame RCA IQ
 # cubic launch pays the pair's geometry once (receive leg 16, tap weights
 # 13, phase 4) and the rest per frame (complex cubic gather 22, rotation 6,
 # scale and sum 4).
 OPS_HERCULES_REAL_LINEAR = 24
-OPS_FORCES_REAL_LINEAR_COH = 19
+OPS_FORCES_REAL_LINEAR_COH = 14
 OPS_RCA_IQ_CUBIC_SHARED = 33
 OPS_RCA_IQ_CUBIC_FRAME = OPS_RCA_IQ_CUBIC - OPS_RCA_IQ_CUBIC_SHARED
 FRAME_BATCH = 4   # frames per push_batch on path E
@@ -231,15 +244,55 @@ def phase_device() -> tuple[str, str]:
 
 
 def phase_build() -> None:
-    from ogl_beamforming_tpu_torch.kernels import build
+    from ogl_beamforming_tpu_torch.kernels import build, sass
     t0 = time.perf_counter()
     build.library()
     dt = time.perf_counter() - t0
     log = build.library_path().with_suffix(".log")
-    regs = [ln.strip() for ln in log.read_text().splitlines()
-            if "registers" in ln] if log.exists() else []
+    usage = sass.ptxas_usage(log.read_text()) if log.exists() else {}
+    BUILD_FACTS["usage"] = usage
+    BUILD_FACTS["loops"] = sass.forces_loops(sass.dump(build.library_path()))
+    decode = "; ".join(f"{m.group(1)} {regs} registers, {spill} B spilled"
+                       for name, (regs, spill) in sorted(usage.items())
+                       for m in [re.search(r"(decode_(?:i8|f32)_kernel(?:ILi\d)?)",
+                                           name)] if m)
     print(f"[build] {build.library_path().name} in {dt:.1f} s "
-          f"(ptxas: {len(regs)} kernels; {'; '.join(regs[:3])})")
+          f"(ptxas: {len(usage)} kernels; decode: {decode})")
+    print("[build] das_forces_kernel inner pair loop (cuobjdump -sass, "
+          "static; instructions / pairs in the unrolled body -> per pair; "
+          "LDG, LDS, MUFU): " + "; ".join(
+              f"{k} {c['instructions']}/{c['pairs']:g} -> "
+              f"{c['per_pair']:.1f} ({c['LDG']}, {c['LDS']}, {c['MUFU']})"
+              for k, c in sorted(BUILD_FACTS["loops"].items())
+              if k.endswith("fb1")))
+
+
+BUILD_FACTS: dict = {}   # ptxas usage and SASS loop counts (phase 2)
+
+
+def forces_facts(st, dyn) -> str:
+    """Registers, spills, resident warps, the index table's pass and the
+    inner loop's SASS count of the das_forces_kernel instantiation that runs
+    ``st``."""
+    from ogl_beamforming_tpu_torch.kernels import sass
+    from ogl_beamforming_tpu_torch.ops import das_cuda
+    mode = das_cuda._MODE[st.interpolation_mode]
+    tag = (f"das_forces_kernelILi{mode}ELb{int(st.iq)}"
+           f"ELb{int(st.coherency_weighting)}ELi1E")
+    regs = [v for k, v in BUILD_FACTS["usage"].items() if tag in k]
+    check(len(regs) == 1, f"no single ptxas entry for {tag}")
+    tables = dyn.get("launch") or das_cuda.launch_tables(st, dyn)
+    n_tx, chunk = tables["tx_pos"].shape[0], tables["tx_pass"]
+    blocks = das_cuda.blocks_per_sm(st, n_tx, chunk)
+    check(blocks > 0, f"{tag}: no block fits on an SM")
+    key = (f"{sass.MODES[mode]} {'iq' if st.iq else 'real'}"
+           f"{' coh' if st.coherency_weighting else ''} fb1")
+    loop = BUILD_FACTS["loops"].get(key)
+    per_pair = f"{loop['per_pair']:.1f}" if loop else "not found"
+    return (f"{regs[0][0]} registers, {regs[0][1]} B spilled, {blocks} "
+            f"blocks = {4 * blocks} resident warps per SM at {n_tx} "
+            f"transmits, {chunk} a pass of the index table; inner loop "
+            f"{per_pair} SASS instructions per pair")
 
 
 def active_pairs(st, dyn) -> int:
@@ -283,10 +336,23 @@ def active_pairs(st, dyn) -> int:
     return total
 
 
+def pass_times(rf, dyn, st):
+    """(transmits per pass, median ms) of the FORCES kernel at each pass of
+    its index table, whichever the launch tables chose."""
+    from ogl_beamforming_tpu_torch.ops import das_cuda
+    tables = dyn.get("launch") or das_cuda.launch_tables(st, dyn)
+    out = []
+    for tx_pass in (das_cuda.NARROW_PASS, das_cuda.WIDE_PASS):
+        d = dict(dyn, launch=dict(tables, tx_pass=tx_pass))
+        out.append((tx_pass, median_ms(lambda: das_cuda.das_cuda(rf, d, st))))
+    return out
+
+
 def das_row(name, label, rf, dyn, st, ops_per_pair) -> dict:
     """The DAS kernel against its twin on ``rf`` (each output, coherent and
     incoherent, to NRMSE 1e-4), both timed, the line printed; returns the
-    kernel's row, its bound from ``ops_per_pair`` per active pair."""
+    kernel's row, its bound from ``ops_per_pair`` per active pair (and, for
+    FORCES, the transmit leg once per voxel and transmit)."""
     from ogl_beamforming_tpu_torch.ops import das as das_ops
     from ogl_beamforming_tpu_torch.ops import das_cuda
     outs_k = das_cuda.das_cuda(rf, dyn, st)
@@ -303,13 +369,39 @@ def das_row(name, label, rf, dyn, st, ops_per_pair) -> dict:
     ms, iqr = kernel_ms(lambda: das_cuda.das_cuda(rf, dyn, st))
     out_bytes = sum(k.numel() * k.element_size() for k in outs_k)
     pairs = active_pairs(st, dyn)
+    nops = ops_per_pair * pairs
+    facts = ""
+    if st.family == "forces":
+        voxels = int(np.prod(st.output_points))
+        nops += (OPS_FORCES_TX_LEG * voxels
+                 * len(das_ops.transmit_tables(st, dyn)[0]))
+        facts = "; " + forces_facts(st, dyn) + "; by pass: " + ", ".join(
+            f"{p} transmits {ms_p:.3f} ms" for p, ms_p in pass_times(rf, dyn, st))
     print(f"[kernels] DAS {label} {tuple(rf.shape)} -> {st.output_points}: "
           f"NRMSE {worst:.3e}, max abs err {err:.3e}; kernel {ms:.3f} ms "
           f"(IQR {iqr:.3f}), plain {plain_ms:.3f} ms; {pairs} active pairs; "
-          f"twin took {twin_s:.1f} s")
+          f"twin took {twin_s:.1f} s{facts}")
     return kernel_row(name, "das.cu", "ops/das_pallas.py:1963", err, ms,
                       plain_ms, rf.numel() * rf.element_size() + out_bytes,
-                      ops_per_pair * pairs)
+                      nops, iqr=iqr)
+
+
+def forces_frame_batch(rf, dyn, st) -> None:
+    """The FORCES kernel's four-frame launch at ``rf``'s shape: each frame
+    (``rf`` scaled by 1..4) against a single-frame launch on it, NRMSE
+    <= 1e-6."""
+    import dataclasses
+
+    from ogl_beamforming_tpu_torch.ops import das_cuda
+    frames = torch.stack([rf * float(b + 1) for b in range(FRAME_BATCH)])
+    out4 = das_cuda.das_cuda(frames, dyn, dataclasses.replace(
+        st, frame_batch=FRAME_BATCH))
+    err = max(compare(out4[b], das_cuda.das_cuda(frames[b], dyn, st), 1e-6,
+                      f"four-frame FORCES frame {b}")
+              for b in range(FRAME_BATCH))
+    print(f"[kernels] DAS FORCES cubic, {FRAME_BATCH} frames in one launch "
+          f"{tuple(frames.shape)}: each frame vs a single-frame launch max "
+          f"abs err {err:.3e}")
 
 
 def phase_kernels(dev) -> list[dict]:
@@ -327,7 +419,8 @@ def phase_kernels(dev) -> list[dict]:
     rng = np.random.default_rng(1234)
     rows = []
 
-    # decode, int16 at the main path's shape: bit-equal
+    # decode, int16 at the main path's shape: bit-equal; bound by bytes
+    # (the int8 tensor cores do its 2 x 2 C A^2 S operations in 0.017 ms)
     c, a, s = 128, 128, 4096
     rf = torch.from_numpy(rng.integers(-32768, 32767, (c, a, s),
                                        dtype=np.int16)).to(dev)
@@ -341,13 +434,16 @@ def phase_kernels(dev) -> list[dict]:
     dec_plain_ms = median_ms(lambda: decode.decode_hadamard_ref(rf, h), RUNS)
     rf32 = rf.to(torch.float32)
     dec_lib_ms = median_ms(lambda: torch.matmul(h, rf32))
-    print(f"[kernels] decode int16 {c}x{a}x{s}: bit-equal; kernel "
-          f"{dec_ms:.3f} ms (IQR {dec_iqr:.3f}), plain {dec_plain_ms:.3f} ms, cuBLAS f32 "
-          f"matmul {dec_lib_ms:.3f} ms")
-    rows.append(kernel_row(
+    row = kernel_row(
         "decode_hadamard", "decode.cu", "ops/decode.py:247", dec_err, dec_ms,
-        dec_plain_ms, rf.numel() * 2 + out_k.numel() * 4 + a * a * 4,
-        2.0 * c * a * a * s, dec_lib_ms))
+        dec_plain_ms, rf.numel() * 2 + out_k.numel() * 4 + a * a,
+        [(2 * 2.0 * c * a * a * s, PEAK_INT8_PER_S)], dec_lib_ms, iqr=dec_iqr)
+    print(f"[kernels] decode int16 {c}x{a}x{s}: bit-equal; kernel "
+          f"{dec_ms:.3f} ms (IQR {dec_iqr:.3f}), plain {dec_plain_ms:.3f} ms, "
+          f"cuBLAS f32 matmul {dec_lib_ms:.3f} ms; bound "
+          f"{row['bound_ms']:.3f} ms ({row['bound_by']}), "
+          f"{row['bound_ms'] / dec_ms:.3f} of it")
+    rows.append(row)
     del rf32, out_k, out_p
 
     # decode, int16 at paths C (order 128) and D (order 64, 256 channels):
@@ -377,6 +473,39 @@ def phase_kernels(dev) -> list[dict]:
         check(rel <= 1e-6, f"{label} decode max relative error {rel:.3e}")
         print(f"[kernels] decode {label} {tuple(shape)}: max rel err "
               f"{rel:.3e}, bit-equal {torch.equal(k, p)}")
+        del x, k, p
+
+    # decode, complex64 at path B's decode stage (128 x 128 x 2048 complex,
+    # 4096 floats a row after the interleave): the float32 kernel, max error
+    # <= 1e-6 of the peak; three bf16 products on the tensor cores
+    shape = (c, a, s // 2)
+    x = torch.complex(
+        torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)),
+        torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+    ).to(dev)
+    k = decode.decode_hadamard_cuda(x, h)
+    p = decode.decode_hadamard_ref(x, h)
+    torch.cuda.synchronize()
+    err = float((k - p).abs().max())
+    rel = err / float(p.abs().max())
+    check(rel <= 1e-6, f"complex64 decode max relative error {rel:.3e}")
+    f_ms, f_iqr = kernel_ms(lambda: decode.decode_hadamard_cuda(x, h))
+    f_plain_ms = median_ms(lambda: decode.decode_hadamard_ref(x, h), RUNS)
+    xf = torch.view_as_real(x).reshape(c, a, s)
+    f_lib_ms = median_ms(lambda: torch.matmul(h, xf))
+    nbytes = 2 * x.numel() * 8 + a * a
+    row = kernel_row(
+        "decode_hadamard_f32", "decode.cu", "ops/decode.py:247", err, f_ms,
+        f_plain_ms, nbytes, [(3 * 2.0 * c * a * a * s, PEAK_BF16_PER_S)],
+        f_lib_ms, iqr=f_iqr)
+    print(f"[kernels] decode complex64 {shape} (float32 kernel on "
+          f"{(c, a, s)}): max rel err {rel:.3e}; kernel {f_ms:.3f} ms (IQR "
+          f"{f_iqr:.3f}), plain {f_plain_ms:.3f} ms, cuBLAS f32 matmul "
+          f"{f_lib_ms:.3f} ms; bound {row['bound_ms']:.3f} ms "
+          f"({row['bound_by']}, {nbytes / 1e6:.1f} MB), "
+          f"{row['bound_ms'] / f_ms:.3f} of it")
+    rows.append(row)
+    del x, k, p, xf
 
     # DAS, FORCES cubic real at the Quickstart's shape
     params, pipe = presets.forces_compounding(
@@ -389,6 +518,7 @@ def phase_kernels(dev) -> list[dict]:
         rng.standard_normal((c, a, s), dtype=np.float32)).to(dev)
     rows.append(das_row("das_forces", "FORCES cubic", rf, dyn, st,
                         OPS_FORCES_REAL_CUBIC))
+    forces_frame_batch(rf, dyn, st)
     del rf
 
     # DAS, FORCES cubic IQ at path B's DAS stage: the plan of the preset's
@@ -1080,8 +1210,6 @@ def phase_main_batch(dev) -> dict:
 # NRMSE 1e-6), then its module's sweep with the launch counts set to 0 just
 # before and read just after, then its table row at one timed shape.
 
-PEAK_BF16_PER_S = 989e12     # dense tensor-core rates, H100 SXM data sheet
-PEAK_INT8_PER_S = 1979e12
 MICRO_ITERS = 5              # launches per timed run in the phase's sweeps
 MICRO_ADD_ONLY = {"clip", "mod", "raw", "f32_direct", "i32_direct",
                   "bcast_hoist", "bcast_chunk"}
@@ -1465,6 +1593,7 @@ def main() -> None:
     demod = phase_main_demod(dev)
     launches["demodulate"] = demod["demodulate"]
     launches["das_forces_iq"] = demod["das_forces"]
+    launches["decode_hadamard_f32"] = demod["decode_hadamard"]
     launches["fir"] = fir_launches["fir"]
     launches["das_hercules"] = phase_main_hercules(dev)["das_hercules"]
     launches["das_forces_coh3d"] = phase_main_uforces(dev)["das_forces"]

@@ -10,20 +10,38 @@
 //   out[v] = sum_c sum_j apod(v, c) * w_j * interp(rf[c, row_j], idx(v, c, j))
 //   idx    = (|rx(v, c)| / c_0 + t_0) * fs  +  |tx(v, j)| * fs / c_0
 //
-// What bounds it on this card: each (voxel, channel, transmit) pair costs an
-// IEEE square root for the transmit leg, one to four RF loads and about
-// thirty flops; at the main path's size (128 x 128 pairs x 524,288 voxels,
-// 8.6 G pairs) that is instruction issue and L1/L2 traffic, not device
-// memory (the decoded frame is 256 MiB and each channel's 2 MiB of RF stays
-// in L2 while every voxel block sweeps it).
+// What bounds it on this card: instruction issue, not device memory (the
+// decoded frame is 256 MiB and each channel's 2 MiB of RF stays in L2 while
+// every voxel block sweeps it).  The Quickstart is 8.6 G (voxel, channel,
+// transmit) candidates, 6.1 G inside the tap window; each active one costs
+// one to four RF loads, the tap weights and the sum, and an IQ one a
+// division and a full-range sincos as well.  The transmit leg
+// |tx(v, j)| * fs / c_0 -- an IEEE square root, two products and a sum --
+// depends on the voxel and the transmit only.
 //
 // What the design does about it: one thread per voxel, voxels in the output's
-// C order so that neighbouring threads read neighbouring samples; the
+// C order so that neighbouring threads read neighbouring samples.  The
+// transmit leg is computed once per (voxel, transmit), with the rounded
+// operations and order of before, into a table in shared memory laid out
+// [transmit][voxel] (each thread reads and writes only its own column: no
+// bank conflicts and no barrier), 8 or 32 transmits a pass.  A pass of 32
+// halves the receive terms' share of the work (they are recomputed once a
+// pass), but its 16 KB a block take L1's room: where a warp's gathers are
+// scattered (3D grids) the caller takes passes of 8 (ops/das_cuda.py); the
 // receive terms (apodization, receive delay) are computed once per
-// (voxel, channel) and channels whose apodization mask is off are skipped
-// entirely; the per-transmit tables (x position, weight, rf row) sit in
-// shared memory.  None of the TPU kernel's scheduling machinery (tile
-// activity tables, chunk bounds, int16 line packing) is carried over.
+// (voxel, channel, pass), and channels whose apodization mask is off are
+// skipped entirely.  A pair then costs an add (receive index + table entry)
+// and the window test before anything else, so a pair outside the tap
+// window costs an add and two compares, not a square root.  The
+// per-transmit tables (x position, weight, and the rf row as a 32-bit offset
+// inside the channel, so a tap's address is not 64-bit arithmetic per pair)
+// sit in shared memory.
+// The IQ rotation stays per pair as the twin computes it (phase below): a
+// cheaper phase with another rounding would move the result by about 1e-4
+// at path B's indices.  kernels/sass.py counts the inner pair loop's SASS
+// instructions of each instantiation.  None of the TPU kernel's scheduling
+// machinery (tile activity tables, chunk bounds, int16 line packing) is
+// carried over.
 //
 // Numerics follow the JAX package's exact-f32 XLA path (ops/das.py), not the
 // Pallas kernel's approximations: the world point and the sample index are
@@ -103,6 +121,7 @@
 // it.  The kernels are bound by operations, not bytes, so the shared
 // geometry is what a batch saves (the Pallas kernel's fb_pack form).
 
+#include <climits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -124,6 +143,12 @@ constexpr float kColumns = 2.f;        // RCAOrientation.Columns
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kTwoPi = 6.28318530717958647692f;
 constexpr int kBlock = 128;
+// das_forces_kernel: the most transmits per pass of its index table (chunk x
+// kBlock floats of shared memory, at most 16 KB; the caller picks the pass),
+// and the most transmits it takes (their per-transmit table, 12 bytes each,
+// beside it in 48 KB of shared memory).
+constexpr int kMaxTxChunk = 32;
+constexpr int kMaxTransmits = 2048;
 
 enum Mode { kNearest = 0, kLinear = 1, kCubic = 2 };
 enum Family { kForces = 0, kHercules = 1, kRca = 2 };  // ops/das_cuda.py::_FAMILY
@@ -168,22 +193,28 @@ struct Taps {
 // (das.glsl:64-122; JAX ops/das.py:_interpolate).
 template <int MODE>
 __device__ __forceinline__ bool make_taps(int S, float index, Taps& tp) {
+  // The window is tested on the index itself, before anything else: for an
+  // integer bound b, floor(index) >= b is index >= b and floor(index) < b is
+  // index < b, so these tests are the floor-based ones of the twin.
   if (MODE == kNearest) {
+    if (!(index >= 0.f)) return false;
     const float r = rintf(index);
-    if (!(floorf(index) >= 0.f && r < (float)S)) return false;
+    if (!(r < (float)S)) return false;
     tp.i = (int)r;
     return true;
   }
-  const float k = floorf(index);
-  const float t = index - k;
   if (MODE == kLinear) {
-    if (!(k >= 0.f && k < (float)(S - 1))) return false;
+    if (!(index >= 0.f && index < (float)(S - 1))) return false;
+    const float k = floorf(index);
+    const float t = index - k;
     tp.i = (int)k;
     tp.c0 = 1.f - t;
     tp.c1 = t;
     return true;
   }
-  if (!(k > 0.f && k < (float)(S - 2))) return false;
+  if (!(index >= 1.f && index < (float)(S - 2))) return false;
+  const float k = floorf(index);
+  const float t = index - k;
   tp.i = (int)k;
   const float tt = t * t, ttt = tt * t;   // Catmull-Rom, C_SPLINE = 0.5
   tp.c0 = 2.f * ttt - 3.f * tt + 1.f;
@@ -242,6 +273,7 @@ struct Args {
   float* inco;             // (FB, nx, ny, nz) incoherent sums, or null
   int channels, channel_count, rf_rows, S;
   int n_tx;                // transmits (FORCES, HERCULES) or acquisitions (RCA)
+  int tx_chunk;            // transmits per pass of the FORCES index table
   int nx, ny, nz, gnx, gny, gnz;
 };
 
@@ -327,10 +359,20 @@ __global__ void __launch_bounds__(kBlock) das_forces_kernel(const Args args) {
   const int channels = args.channels, rf_rows = args.rf_rows, S = args.S;
   const int n_tx = args.n_tx;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* s_pos = reinterpret_cast<float*>(smem);
+  const int chunk = args.tx_chunk;
+  float* s_index = reinterpret_cast<float*>(smem);     // chunk x kBlock
+  float* s_pos = s_index + chunk * kBlock;
   float* s_w = s_pos + n_tx;
-  int* s_row = reinterpret_cast<int*>(s_w + n_tx);
-  load_tx_table(args, s_pos, s_w, s_row);
+  int* s_off = reinterpret_cast<int*>(s_w + n_tx);
+  // Per transmit: x position, weight and the offset of its rf row inside a
+  // channel (rf_rows * S < 2^31, checked at launch), so that a tap's
+  // address is one 32-bit sum and one widening multiply-add.
+  for (int j = threadIdx.x; j < n_tx; j += blockDim.x) {
+    s_pos[j] = args.tx_pos[j];
+    s_w[j] = args.tx_weight[j];
+    s_off[j] = args.tx_row[j] * S;
+  }
+  __syncthreads();
 
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= args.nx * args.ny * args.nz) return;
@@ -348,34 +390,45 @@ __global__ void __launch_bounds__(kBlock) das_forces_kernel(const Args args) {
   const float t_yz2 = __fadd_rn(__fmul_rn(ty, ty), z2);
   const float fs_over_c = __fdiv_rn(fs, sos);
   const float two_pi_fd = __fmul_rn(kTwoPi, fd);
+  // This thread's column of the index table: only it reads and writes it,
+  // so the table needs no barrier.
+  float* tx_index = s_index + threadIdx.x;
 
   Sums<IQ, COH, FB> acc, part;
   acc.clear();
-  for (int c = 0; c < channels; ++c) {
-    const float ch = __fadd_rn(ch0, (float)c);
-    const float rx_dx = __fsub_rn(x, __fmul_rn(ch, px));
-    const float a_arg = fabsf(__fdiv_rn(__fmul_rn(fnum, rx_dx), z));
-    if (!(a_arg < 0.5f)) continue;                 // apodization mask
-    const float ca = cosf(__fmul_rn(kPi, a_arg));
-    const float apod = __fmul_rn(ca, ca);
-    const float rx_index = __fmul_rn(
-        __fadd_rn(__fdiv_rn(__fsqrt_rn(__fadd_rn(__fmul_rn(rx_dx, rx_dx), z2)), sos), t0), fs);
-    const T* rf_c = rf + (size_t)c * rf_rows * S;
-
-    part.clear();
-    for (int j = 0; j < n_tx; ++j) {
-      const float tx_dx = __fsub_rn(x, s_pos[j]);
-      const float tx_index =
+  for (int j0 = 0; j0 < n_tx; j0 += chunk) {
+    const int nj = min(chunk, n_tx - j0);
+    // The transmit leg of each transmit of the chunk, once per voxel (the
+    // twin's tx_index field, ops/das.py:_forces_block).
+    for (int jj = 0; jj < nj; ++jj) {
+      const float tx_dx = __fsub_rn(x, s_pos[j0 + jj]);
+      tx_index[jj * kBlock] =
           __fmul_rn(__fsqrt_rn(__fadd_rn(t_yz2, __fmul_rn(tx_dx, tx_dx))), fs_over_c);
-      const float index = __fadd_rn(rx_index, tx_index);
-      Taps tp;
-      if (!make_taps<MODE>(S, index, tp)) continue;
-      float sn, cs;
-      phase<IQ>(two_pi_fd, index, fs, sn, cs);
-      part.template pair<MODE>(rf_c + (size_t)s_row[j] * S, frame, tp, sn, cs,
-                               __fmul_rn(apod, s_w[j]));
     }
-    part.flush_into(acc);
+    for (int c = 0; c < channels; ++c) {
+      const float ch = __fadd_rn(ch0, (float)c);
+      const float rx_dx = __fsub_rn(x, __fmul_rn(ch, px));
+      const float a_arg = fabsf(__fdiv_rn(__fmul_rn(fnum, rx_dx), z));
+      if (!(a_arg < 0.5f)) continue;                 // apodization mask
+      const float ca = cosf(__fmul_rn(kPi, a_arg));
+      const float apod = __fmul_rn(ca, ca);
+      const float rx_index = __fmul_rn(
+          __fadd_rn(__fdiv_rn(__fsqrt_rn(__fadd_rn(__fmul_rn(rx_dx, rx_dx), z2)), sos), t0), fs);
+      const T* rf_c = rf + (size_t)c * rf_rows * S;
+
+      part.clear();
+      for (int jj = 0; jj < nj; ++jj) {
+        const float index = __fadd_rn(rx_index, tx_index[jj * kBlock]);
+        Taps tp;
+        if (!make_taps<MODE>(S, index, tp)) continue;
+        float sn, cs;
+        phase<IQ>(two_pi_fd, index, fs, sn, cs);
+        const int j = j0 + jj;
+        tp.i += s_off[j];
+        part.template pair<MODE>(rf_c, frame, tp, sn, cs, __fmul_rn(apod, s_w[j]));
+      }
+      part.flush_into(acc);
+    }
   }
   acc.store(args, v);
 }
@@ -506,81 +559,112 @@ __global__ void __launch_bounds__(kBlock) das_rca_kernel(const Args args) {
   acc.store(args, v);
 }
 
-// One thread per voxel, `smem` bytes of tables per block.
+// One thread per voxel, `smem` bytes of tables per block.  With `occupancy`
+// set, nothing is launched: it receives the blocks of `kernel` that fit on
+// one SM (registers, shared memory and threads) instead.
 template <typename Kernel>
-int launch_voxels(Kernel kernel, const Args& args, size_t smem, cudaStream_t stream) {
+int launch_voxels(Kernel kernel, const Args& args, size_t smem, cudaStream_t stream,
+                  int* occupancy) {
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
+  if (occupancy != nullptr)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel, kBlock,
+                                                             smem);
   const int voxels = args.nx * args.ny * args.nz;
   kernel<<<(voxels + kBlock - 1) / kBlock, kBlock, smem, stream>>>(args);
   return (int)cudaGetLastError();
 }
 
 template <int FAMILY, int MODE, bool IQ, bool COH, int FB>
-int launch(const Args& args, cudaStream_t stream) {
+int launch(const Args& args, cudaStream_t stream, int* occupancy) {
   const size_t tx_table = (size_t)args.n_tx * (2 * sizeof(float) + sizeof(int));
-  if constexpr (FAMILY == kForces)
-    return launch_voxels(das_forces_kernel<MODE, IQ, COH, FB>, args, tx_table, stream);
-  else if constexpr (FAMILY == kHercules)
-    return launch_voxels(das_hercules_kernel<MODE, IQ, COH, FB>, args, tx_table, stream);
-  else
+  if constexpr (FAMILY == kForces) {
+    if (args.n_tx > kMaxTransmits || args.tx_chunk < 1 || args.tx_chunk > kMaxTxChunk ||
+        (long long)args.rf_rows * args.S > INT_MAX)
+      return (int)cudaErrorInvalidValue;
+    return launch_voxels(das_forces_kernel<MODE, IQ, COH, FB>, args,
+                         args.tx_chunk * kBlock * sizeof(float) + tx_table, stream,
+                         occupancy);
+  } else if constexpr (FAMILY == kHercules) {
+    return launch_voxels(das_hercules_kernel<MODE, IQ, COH, FB>, args, tx_table, stream,
+                         occupancy);
+  } else {
     return launch_voxels(das_rca_kernel<MODE, IQ, COH, FB>, args,
-                         (size_t)args.n_tx * kRcaWidth * sizeof(float), stream);
+                         (size_t)args.n_tx * kRcaWidth * sizeof(float), stream, occupancy);
+  }
 }
 
 template <int FAMILY, int MODE, bool IQ, bool COH>
-int launch_fb(const Args& args, int fb, cudaStream_t s) {
+int launch_fb(const Args& args, int fb, cudaStream_t s, int* occ) {
   switch (fb) {
-    case 1: return launch<FAMILY, MODE, IQ, COH, 1>(args, s);
-    case 4: return launch<FAMILY, MODE, IQ, COH, 4>(args, s);
+    case 1: return launch<FAMILY, MODE, IQ, COH, 1>(args, s, occ);
+    case 4: return launch<FAMILY, MODE, IQ, COH, 4>(args, s, occ);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <int FAMILY, int MODE>
-int launch_mode(const Args& args, bool iq, bool coh, int fb, cudaStream_t s) {
+int launch_mode(const Args& args, bool iq, bool coh, int fb, cudaStream_t s, int* occ) {
   if (iq)
-    return coh ? launch_fb<FAMILY, MODE, true, true>(args, fb, s)
-               : launch_fb<FAMILY, MODE, true, false>(args, fb, s);
-  return coh ? launch_fb<FAMILY, MODE, false, true>(args, fb, s)
-             : launch_fb<FAMILY, MODE, false, false>(args, fb, s);
+    return coh ? launch_fb<FAMILY, MODE, true, true>(args, fb, s, occ)
+               : launch_fb<FAMILY, MODE, true, false>(args, fb, s, occ);
+  return coh ? launch_fb<FAMILY, MODE, false, true>(args, fb, s, occ)
+             : launch_fb<FAMILY, MODE, false, false>(args, fb, s, occ);
 }
 
 template <int FAMILY>
-int launch_family(const Args& args, int mode, bool iq, bool coh, int fb, cudaStream_t s) {
+int launch_family(const Args& args, int mode, bool iq, bool coh, int fb, cudaStream_t s,
+                  int* occ) {
   switch (mode) {
-    case kNearest: return launch_mode<FAMILY, kNearest>(args, iq, coh, fb, s);
-    case kLinear: return launch_mode<FAMILY, kLinear>(args, iq, coh, fb, s);
-    case kCubic: return launch_mode<FAMILY, kCubic>(args, iq, coh, fb, s);
+    case kNearest: return launch_mode<FAMILY, kNearest>(args, iq, coh, fb, s, occ);
+    case kLinear: return launch_mode<FAMILY, kLinear>(args, iq, coh, fb, s, occ);
+    case kCubic: return launch_mode<FAMILY, kCubic>(args, iq, coh, fb, s, occ);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int dispatch(int family, const Args& args, int mode, bool iq, bool coh, int fb,
+             cudaStream_t s, int* occ) {
+  switch (family) {
+    case kForces: return launch_family<kForces>(args, mode, iq, coh, fb, s, occ);
+    case kHercules: return launch_family<kHercules>(args, mode, iq, coh, fb, s, occ);
+    case kRca: return launch_family<kRca>(args, mode, iq, coh, fb, s, occ);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// One DAS launch of `fb` frames (1 or 4) of `family` (Family above).
+// One DAS launch of `fb` frames (1 or 4) of `family` (Family above);
+// `tx_chunk` is the transmits per pass of the FORCES index table.
 extern "C" int das_launch(int family, const void* rf, const void* sc,
                           const void* tab, const void* tx_pos,
                           const void* tx_weight, const void* tx_row, void* out,
                           void* inco, int channels, int channel_count,
                           int rf_rows, int S, int n_tx, int nx, int ny, int nz,
                           int gnx, int gny, int gnz, int mode, int iq, int coh,
-                          int fb, void* stream) {
+                          int fb, int tx_chunk, void* stream) {
   const Args args{rf, static_cast<const float*>(sc),
                   static_cast<const float*>(tab),
                   static_cast<const float*>(tx_pos),
                   static_cast<const float*>(tx_weight),
                   static_cast<const int*>(tx_row), out,
                   static_cast<float*>(inco), channels, channel_count, rf_rows,
-                  S, n_tx, nx, ny, nz, gnx, gny, gnz};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (family) {
-    case kForces: return launch_family<kForces>(args, mode, iq, coh, fb, s);
-    case kHercules: return launch_family<kHercules>(args, mode, iq, coh, fb, s);
-    case kRca: return launch_family<kRca>(args, mode, iq, coh, fb, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+                  S, n_tx, tx_chunk, nx, ny, nz, gnx, gny, gnz};
+  return dispatch(family, args, mode, iq, coh, fb, static_cast<cudaStream_t>(stream),
+                  nullptr);
+}
+
+// The blocks of one SM that the kernel of (family, mode, iq, coh, fb) holds
+// at once with `n_tx` transmits (or acquisitions) and, for FORCES, passes of
+// `tx_chunk` transmits, into *blocks.
+extern "C" int das_occupancy(int family, int mode, int iq, int coh, int fb,
+                             int n_tx, int tx_chunk, void* blocks) {
+  Args args{};
+  args.n_tx = n_tx;
+  args.tx_chunk = tx_chunk;
+  return dispatch(family, args, mode, iq, coh, fb, nullptr, static_cast<int*>(blocks));
 }

@@ -4,105 +4,515 @@
 // (its bodies _decode_kernel, _decode_kernel_cb, _decode_kernel_pipe and
 // _decode_kernel_i8):
 //     out[c, t, s] = (1/T) * sum_j H[t, j] * rf[c, j, s]
-// for rf (C, A, S) int16 or float32 and out (C, A, S) float32.
+// for rf (C, A, S) int16 or float32 and out (C, A, S) float32, any order
+// A <= 256 (12 * 2^k and 20 * 2^k included).
 //
 // What bounds it on this card: at the main path's shape (C = A = 128,
-// S = 4096) the kernel reads 128 MiB of int16 and writes 256 MiB of float32,
-// about 0.12 ms at 3.35 TB/s, against 8.6 G multiply-adds, about 0.6 ms on
-// the CUDA cores' int32 pipes.  This simple form is therefore bound by
-// arithmetic and shared-memory issue, not by device memory.
+// S = 4096) the decode reads 128 MiB of int16 and writes 256 MiB of float32,
+// 0.120 ms at 3.35 TB/s.  Its 8.6 G multiply-adds are 0.017 ms on the int8
+// tensor cores (the int16 input split into two exact int8 halves) but
+// 0.256 ms on the float32 CUDA cores.  So the int16 kernel is bound by
+// device memory, and everything in it serves the memory path.
 //
-// What the design does about it: one block per (channel, 64-sample tile)
-// stages H (as int8, exact for +-1) and the A x 64 RF tile in shared memory,
-// then each thread keeps eight output rows in registers, so one shared load
-// of an RF value feeds eight multiply-adds.  Tensor cores (int8 wgmma) are
-// the later step.  int16 input accumulates in int32, which is exact for the
-// whole int16 range, and the result is float(acc) * (1/T) with 1/T the f32
-// constant: bit for bit what the JAX package computes.  float32 input
-// (complex frames interleaved re|im along S by the wrapper) accumulates in
-// float32.  Any order A works (12*2^k and 20*2^k included) without padding,
-// as long as H and the tile fit in shared memory (A <= 256, the reference's
-// emission limit, needs 128 KiB).
+// decode_i8_kernel (int16 input), the int8 two-pass form of the JAX
+// package's _decode_kernel_i8:
+//   * x = 256 hi + lo + 128 with hi = x >> 8 and lo = (x & 255) - 128, both
+//     int8; H (+-1) is int8; two mma.sync.m16n8k32 s8 products per tile and
+//     acc = 256 P_hi + P_lo + 128 rowsum(H) in int32, exact for the whole
+//     int16 range (|acc| <= 2^23); out = float(acc) * (1/T) with the f32
+//     constant of ops/decode.py::_inv_order, bit for bit the plain twin.
+//   * Persistent blocks (as many as fit on the card) stage H once each, as
+//     int8 zero-padded to a multiple of 32 in both dimensions (the MMA's K;
+//     the zero columns make the padded rows of the RF tile contribute
+//     nothing, whatever those rows hold), then walk over (channel,
+//     64-sample) tiles.  RF tiles come in by 16-byte cp.async into a ring of
+//     three stages, the next two tiles' copies in flight while this one
+//     computes.
+//   * The transpose: the product contracts over A, the rows of the tile,
+//     while samples are contiguous, and the MMA's B operand wants four
+//     K-consecutive bytes per register.  ldmatrix.trans on the int16 tile
+//     gives each thread two K-consecutive int16 of one sample column per
+//     register; two __byte_perm gather the high and the low bytes of two such
+//     registers into one B register each.  The K order that this produces
+//     within a 32-deep step (K rows 2t, 2t+1, 2t+8, 2t+9 in thread t's
+//     register) is applied to H's columns once, when H is staged.  This was
+//     taken over a transposing write into shared memory because it needs no
+//     second pass over the tile and no second buffer: one ldmatrix.x4 and
+//     four byte permutes give a warp a 32 x 8 B fragment of both halves.
+//   * Output: each 16 x 8 int32 accumulator tile is turned into floats, and
+//     one shuffle between neighbouring threads gives each thread four
+//     consecutive samples of one row, written as one 16-byte streaming
+//     store.
+//
+// decode_f32_kernel (float32 input, complex frames interleaved re|im along S
+// by the wrapper): float32 has no exact int8 split, but it has an exact
+// three-term bf16 one, x = hi + mid + lo (8 + 8 + 8 significant bits), and
+// with H = +-1 every bf16 product is exact.  So the same skeleton runs three
+// bf16 mma.sync.m16n8k16 products per tile on the tensor cores: bound by
+// bytes (0.160 ms at path B's shape) where the float32 CUDA cores are bound
+// by operations (0.256 ms), and a register-tiled CUDA-core kernel of this
+// skeleton stayed slower than the cuBLAS float32 product on the card.  The
+// tensor cores' float32 accumulator is not an IEEE adder, so each 16-deep k
+// step sums its lo, mid and hi products from zero on the tensor cores and
+// the running sum is an IEEE float32 add on the CUDA cores: the error stays
+// within 1e-6 of the output's peak up to order 256 (chip_smoke.py,
+// tests/test_torch_cuda.py).  Each block owns a slice of up to 128 output
+// rows, whose H it stages once as bf16; a thread holds its share of the next
+// 64-sample tile in registers (16-byte loads issued before the products of
+// the current tile), splits it into three bf16 planes in shared memory, and
+// ldmatrix.trans gives the B fragments directly (for 16-bit operands the
+// order it delivers is the MMA's own).  Outputs are 16-byte stores as above.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace {
 
-constexpr int kTile = 64;      // samples per block
-constexpr int kGroups = 4;     // row groups per block (blockDim.y)
-constexpr int kRows = 8;       // output rows per thread per pass
+constexpr int kThreads = 256;          // 8 warps a block
+constexpr int kTileS = 64;             // samples per tile, 8 per warp
+constexpr int kRowBytes = kTileS * 2 + 16;  // padded 16-bit tile row
+constexpr int kStages = 3;             // int16 kernel: RF tiles in the ring
+constexpr int kMaxOrder = 256;
 
-template <typename T> struct Acc;
-template <> struct Acc<int16_t> { using type = int; };
-template <> struct Acc<float> { using type = float; };
+constexpr int kF32Rows = 128;          // float32 kernel: output rows a block owns
 
-template <typename T>
-__global__ void decode_kernel(const T* __restrict__ rf,
-                              const int8_t* __restrict__ h,
-                              float* __restrict__ out,
-                              int A, int S, float scale) {
-  using acc_t = typename Acc<T>::type;
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* hs = reinterpret_cast<int8_t*>(smem);
-  T* xs = reinterpret_cast<T*>(smem + ((A * A + 15) / 16) * 16);
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
 
-  const int c = blockIdx.y;
-  const int s0 = blockIdx.x * kTile;
-  const int tid = threadIdx.y * kTile + threadIdx.x;
-  const int nthreads = kTile * kGroups;
-  const T* src = rf + (size_t)c * A * S;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's copy groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  for (int i = tid; i < A * A; i += nthreads) hs[i] = h[i];
-  for (int i = tid; i < A * kTile; i += nthreads) {
-    const int j = i / kTile, s = s0 + i % kTile;
-    xs[i] = s < S ? src[(size_t)j * S + s] : T(0);
-  }
-  __syncthreads();
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
 
-  const int s = s0 + threadIdx.x;
-  if (s >= S) return;
-  float* dst = out + (size_t)c * A * S + s;
-  for (int t0 = threadIdx.y * kRows; t0 < A; t0 += kGroups * kRows) {
-    const int rows = min(kRows, A - t0);
-    acc_t acc[kRows];
+// d += a (16 x 32, row) * b (32 x 8, col), int8 in, int32 accumulate.
+__device__ __forceinline__ void mma_s8(int d[4], const unsigned a[4],
+                                       unsigned b0, unsigned b1) {
+  asm(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The column of H that sits at logical K position `l` of a 32-deep step:
+// thread t's B register 0 holds tile rows 2t, 2t+1, 2t+8, 2t+9 (ldmatrix
+// matrices 0 and 1), register 1 the same plus 16 (matrices 2 and 3), while
+// the MMA reads them as K = 4t .. 4t+3 (and + 16).
+__device__ __forceinline__ int k_column(int l) {
+  const int half = l / 16, q = l % 16, t = q / 4, i = q % 4;
+  return half * 16 + 8 * (i / 2) + 2 * t + (i % 2);
+}
+
+template <int KSTEPS>
+__global__ void __launch_bounds__(kThreads)
+decode_i8_kernel(const int16_t* __restrict__ rf, const int8_t* __restrict__ h,
+                 float* __restrict__ out, int C, int A, int S, float scale,
+                 bool vec_in, bool vec_out) {
+  constexpr int kPad = KSTEPS * 32;            // A padded to the MMA's K
+  constexpr int kHRow = kPad + 16;             // padded H row, bytes
+  constexpr int kStage = kPad * kRowBytes;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* s_x = smem;          // kStages stages of kPad x kTileS int16
+  int8_t* s_h = reinterpret_cast<int8_t*>(smem + kStages * kStage);  // kPad x kHRow
+  int* s_rs = reinterpret_cast<int*>(smem + kStages * kStage + kPad * kHRow);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int tiles = (S + kTileS - 1) / kTileS;
+  const int units = C * tiles;
+  if ((int)blockIdx.x >= units) return;
+
+  // Bring RF tile `u` (channel u / tiles, samples (u % tiles) * kTileS ..)
+  // into stage `st`: rows j < A, 8 samples (16 bytes) a copy.  Rows A .. kPad
+  // are never written: H's zero columns cancel whatever they hold.
+  auto load = [&](int u, int st) {
+    const int c = u / tiles, s0 = (u % tiles) * kTileS;
+    unsigned char* dst = s_x + st * kStage;
+    for (int i = tid; i < A * (kTileS / 8); i += kThreads) {
+      const int j = i / (kTileS / 8), s = s0 + 8 * (i % (kTileS / 8));
+      const int16_t* src = rf + ((size_t)c * A + j) * S + s;
+      int16_t* d = reinterpret_cast<int16_t*>(dst + j * kRowBytes + (s - s0) * 2);
+      if (vec_in && s + 8 <= S) {
+        cp_async16(d, src);
+      } else {
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0;
-    for (int j = 0; j < A; ++j) {
-      const acc_t x = static_cast<acc_t>(xs[j * kTile + threadIdx.x]);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        if (r < rows) acc[r] += static_cast<acc_t>(hs[(t0 + r) * A + j]) * x;
+        for (int e = 0; e < 8; ++e) d[e] = s + e < S ? src[e] : int16_t(0);
+      }
     }
+  };
+
+  // the first kStages - 1 tiles, one copy group each
+  for (int i = 0; i < kStages - 1; ++i) {
+    const int u = blockIdx.x + i * gridDim.x;
+    if (u < units) load(u, i);
+    cp_async_commit();
+  }
+
+  // H, once per block: logical column l of step k holds H[:, 32 k +
+  // k_column(l)], zero outside A x A; and 128 rowsum(H) per row.
+  for (int i = tid; i < kPad * kPad; i += kThreads) {
+    const int t = i / kPad, l = i % kPad;
+    const int j = (l / 32) * 32 + k_column(l % 32);
+    s_h[t * kHRow + l] = (t < A && j < A) ? h[t * A + j] : int8_t(0);
+  }
+  for (int t = tid; t < kPad; t += kThreads) {
+    int sum = 0;
+    if (t < A)
+      for (int j = 0; j < A; ++j) sum += h[t * A + j];
+    s_rs[t] = 128 * sum;
+  }
+
+  const int m_tiles = (A + 15) / 16;
+  int st = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int ahead = u + (kStages - 1) * gridDim.x;
+    if (ahead < units) load(ahead, (st + kStages - 1) % kStages);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();   // tile u has landed
+    __syncthreads();
+
+    // B fragments of this warp's 8 samples over all of K: hi and lo halves
+    const unsigned char* tile = s_x + st * kStage;
+    unsigned bhi[KSTEPS][2], blo[KSTEPS][2];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      if (r < rows) dst[(size_t)(t0 + r) * S] = static_cast<float>(acc[r]) * scale;
+    for (int k = 0; k < KSTEPS; ++k) {
+      unsigned r[4];
+      ldmatrix_x4_trans(r, tile + (32 * k + lane) * kRowBytes + warp * 16);
+      bhi[k][0] = __byte_perm(r[0], r[1], 0x7531);
+      bhi[k][1] = __byte_perm(r[2], r[3], 0x7531);
+      blo[k][0] = __byte_perm(r[0], r[1], 0x6420) ^ 0x80808080u;
+      blo[k][1] = __byte_perm(r[2], r[3], 0x6420) ^ 0x80808080u;
+    }
+
+    const int c = u / tiles;
+    const int s = (u % tiles) * kTileS + warp * 8 + 4 * (tig / 2);
+    const bool odd = tig & 1;
+    for (int mt = 0; mt < m_tiles; ++mt) {
+      int hi[4] = {0, 0, 0, 0}, lo[4] = {0, 0, 0, 0};
+      const int8_t* hr = s_h + (mt * 16 + gid) * kHRow + 4 * tig;
+#pragma unroll
+      for (int k = 0; k < KSTEPS; ++k) {
+        unsigned a[4];
+        a[0] = *reinterpret_cast<const unsigned*>(hr + 32 * k);
+        a[1] = *reinterpret_cast<const unsigned*>(hr + 8 * kHRow + 32 * k);
+        a[2] = *reinterpret_cast<const unsigned*>(hr + 32 * k + 16);
+        a[3] = *reinterpret_cast<const unsigned*>(hr + 8 * kHRow + 32 * k + 16);
+        mma_s8(hi, a, bhi[k][0], bhi[k][1]);
+        mma_s8(lo, a, blo[k][0], blo[k][1]);
+      }
+      // thread (gid, tig) holds rows gid, gid + 8 at samples 2 tig, 2 tig + 1
+      const int r0 = mt * 16 + gid;
+      float f[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        f[i] = static_cast<float>(256 * hi[i] + lo[i] + s_rs[r0 + 8 * (i / 2)]) * scale;
+      // even threads take row gid, odd ones row gid + 8, four samples each
+      const float g0 = __shfl_xor_sync(0xffffffffu, odd ? f[0] : f[2], 1);
+      const float g1 = __shfl_xor_sync(0xffffffffu, odd ? f[1] : f[3], 1);
+      const float4 v = odd ? make_float4(g0, g1, f[2], f[3])
+                           : make_float4(f[0], f[1], g0, g1);
+      const int row = r0 + (odd ? 8 : 0);
+      if (row < A) {
+        float* dst = out + ((size_t)c * A + row) * S + s;
+        if (vec_out && s + 4 <= S) {
+          __stcs(reinterpret_cast<float4*>(dst), v);
+        } else {
+          const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (s + i < S) dst[i] = e[i];
+        }
+      }
+    }
+    __syncthreads();   // stage st is free for the copy kStages - 1 tiles on
+    st = (st + 1) % kStages;
   }
 }
 
-template <typename T>
-int launch(const void* rf, const void* h, void* out, int C, int A, int S,
-           float scale, void* stream) {
-  const size_t smem = ((size_t)(A * A + 15) / 16) * 16 + (size_t)A * kTile * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float d[4], const unsigned a[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ float bf16_value(unsigned b) {
+  return __uint_as_float(b << 16);
+}
+
+template <int KSTEPS>
+__global__ void __launch_bounds__(kThreads)
+decode_f32_kernel(const float* __restrict__ rf, const int8_t* __restrict__ h,
+                  float* __restrict__ out, int C, int A, int S, float scale,
+                  bool vec_in, bool vec_out) {
+  constexpr int kPad = KSTEPS * 32;              // A padded to the MMA's K
+  constexpr int kSlice = kPad < kF32Rows ? kPad : kF32Rows;  // rows a block owns
+  constexpr int kPlane = kPad * kRowBytes;       // one bf16 plane, rows of 144 B
+  constexpr int kHRow = 2 * kPad + 16;           // padded bf16 H row, bytes
+  constexpr int kVec = kPad * (kTileS / 4) / kThreads;  // float4 a thread holds
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* s_p = smem;                     // hi, mid, lo planes
+  unsigned char* s_h = smem + 3 * kPlane;        // kSlice x kHRow
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int slices = (A + kSlice - 1) / kSlice;
+  const int slice = blockIdx.x % slices;
+  const int group = blockIdx.x / slices, groups = gridDim.x / slices;
+  const int tiles = (S + kTileS - 1) / kTileS;
+  const int units = C * tiles;
+  if (group >= units) return;
+
+  // Tile `u` into registers: float4 i of this thread is row idx / 16,
+  // samples 4 (idx % 16) .. of the tile, idx = tid + i kThreads.
+  float4 x[kVec];
+  auto fetch = [&](int u) {
+    const int c = u / tiles, s0 = (u % tiles) * kTileS;
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      const int idx = tid + i * kThreads, j = idx / (kTileS / 4);
+      const int s = s0 + 4 * (idx % (kTileS / 4));
+      x[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (j >= A) continue;
+      const float* src = rf + ((size_t)c * A + j) * S + s;
+      if (vec_in && s + 4 <= S) {
+        x[i] = __ldcs(reinterpret_cast<const float4*>(src));
+      } else {
+        float e[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) e[k] = s + k < S ? src[k] : 0.f;
+        x[i] = make_float4(e[0], e[1], e[2], e[3]);
+      }
+    }
+  };
+  fetch(group);
+
+  // H's rows of this slice as bf16 (exact for +-1), zero outside A x A.
+  const int t0 = slice * kSlice;
+  for (int i = tid; i < kSlice * kPad; i += kThreads) {
+    const int t = i / kPad, j = i % kPad;
+    const float v = (t0 + t < A && j < A) ? static_cast<float>(h[(t0 + t) * A + j]) : 0.f;
+    reinterpret_cast<unsigned short*>(s_h + t * kHRow)[j] = bf16_bits(v);
+  }
+
+  const int m_tiles = min(kSlice, A - t0 + 15) / 16;
+  for (int u = group; u < units; u += groups) {
+    // x = hi + mid + lo, three bf16 terms, exactly (8 + 8 + 8 significant
+    // bits), each into its plane; the padded rows hold zeros
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      const int idx = tid + i * kThreads, j = idx / (kTileS / 4);
+      const int q = 4 * (idx % (kTileS / 4));
+      const float v[4] = {x[i].x, x[i].y, x[i].z, x[i].w};
+      unsigned b[3][4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        b[0][e] = bf16_bits(v[e]);
+        const float r1 = v[e] - bf16_value(b[0][e]);
+        b[1][e] = bf16_bits(r1);
+        b[2][e] = bf16_bits(r1 - bf16_value(b[1][e]));
+      }
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+        *reinterpret_cast<uint2*>(s_p + p * kPlane + j * kRowBytes + 2 * q) =
+            make_uint2(b[p][0] | b[p][1] << 16, b[p][2] | b[p][3] << 16);
+    }
+    __syncthreads();
+    if (u + groups < units) fetch(u + groups);   // in flight during the products
+
+    float acc[kSlice / 16][4];
+#pragma unroll
+    for (int m = 0; m < kSlice / 16; ++m)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][i] = 0.f;
+#pragma unroll
+    for (int k = 0; k < KSTEPS; ++k) {
+      // B fragments of this warp's 8 samples, K rows 32 k .. 32 k + 31: for
+      // bf16 the order ldmatrix.trans delivers is the MMA's own
+      unsigned b[3][4];
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+        ldmatrix_x4_trans(b[p], s_p + p * kPlane + (32 * k + lane) * kRowBytes + warp * 16);
+#pragma unroll
+      for (int m = 0; m < kSlice / 16; ++m) {
+        if (m >= m_tiles) break;
+        const unsigned char* hr = s_h + (m * 16 + gid) * kHRow + 64 * k + 4 * tig;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          unsigned a[4];
+          a[0] = *reinterpret_cast<const unsigned*>(hr + 32 * half);
+          a[1] = *reinterpret_cast<const unsigned*>(hr + 8 * kHRow + 32 * half);
+          a[2] = *reinterpret_cast<const unsigned*>(hr + 32 * half + 16);
+          a[3] = *reinterpret_cast<const unsigned*>(hr + 8 * kHRow + 32 * half + 16);
+          // lo, mid and hi of this k step from zero on the tensor cores;
+          // the running sum is an IEEE float32 add on the CUDA cores
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int p = 2; p >= 0; --p)
+            mma_bf16(d, a, b[p][2 * half], b[p][2 * half + 1]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[m][i] += d[i];
+        }
+      }
+    }
+
+    const int c = u / tiles;
+    const int s = (u % tiles) * kTileS + warp * 8 + 4 * (tig / 2);
+    const bool odd = tig & 1;
+#pragma unroll
+    for (int m = 0; m < kSlice / 16; ++m) {
+      if (m >= m_tiles) break;
+      float f[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) f[i] = acc[m][i] * scale;
+      const float g0 = __shfl_xor_sync(0xffffffffu, odd ? f[0] : f[2], 1);
+      const float g1 = __shfl_xor_sync(0xffffffffu, odd ? f[1] : f[3], 1);
+      const float4 v = odd ? make_float4(g0, g1, f[2], f[3])
+                           : make_float4(f[0], f[1], g0, g1);
+      const int row = t0 + m * 16 + gid + (odd ? 8 : 0);
+      if (row < A) {
+        float* dst = out + ((size_t)c * A + row) * S + s;
+        if (vec_out && s + 4 <= S) {
+          __stcs(reinterpret_cast<float4*>(dst), v);
+        } else {
+          const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (s + i < S) dst[i] = e[i];
+        }
+      }
+    }
+    __syncthreads();   // the planes are free for the next tile
+  }
+}
+
+// As many blocks of `kernel` as the card holds at once, at most `want`.
+template <typename Kernel>
+int persistent_grid(Kernel kernel, int threads, size_t smem, long long want,
+                    int multiple, int* grid) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + kTile - 1) / kTile, C);
-  dim3 block(kTile, kGroups);
-  decode_kernel<T><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(rf), static_cast<const int8_t*>(h),
-      static_cast<float*>(out), A, S, scale);
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  long long g = (long long)sms * per_sm;
+  if (g > want) g = want;
+  g -= g % multiple;
+  *grid = (int)(g < multiple ? multiple : g);
+  return 0;
+}
+
+template <int KSTEPS>
+int launch_i8(const int16_t* rf, const int8_t* h, float* out, int C, int A,
+              int S, float scale, cudaStream_t stream) {
+  constexpr int kPad = KSTEPS * 32;
+  const size_t smem = (size_t)kStages * kPad * kRowBytes +
+                      (size_t)kPad * (kPad + 16) + (size_t)kPad * sizeof(int);
+  const long long units = (long long)C * ((S + kTileS - 1) / kTileS);
+  int grid = 0;
+  const int err = persistent_grid(decode_i8_kernel<KSTEPS>, kThreads, smem, units, 1,
+                                  &grid);
+  if (err) return err;
+  const bool vec_in = S % 8 == 0 && reinterpret_cast<uintptr_t>(rf) % 16 == 0;
+  const bool vec_out = S % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  decode_i8_kernel<KSTEPS><<<grid, kThreads, smem, stream>>>(
+      rf, h, out, C, A, S, scale, vec_in, vec_out);
   return (int)cudaGetLastError();
+}
+
+template <int KSTEPS>
+int launch_f32(const float* rf, const int8_t* h, float* out, int C, int A, int S,
+               float scale, cudaStream_t stream) {
+  constexpr int kPad = KSTEPS * 32;
+  constexpr int kSlice = kPad < kF32Rows ? kPad : kF32Rows;
+  const size_t smem = 3 * (size_t)kPad * kRowBytes + (size_t)kSlice * (2 * kPad + 16);
+  const int slices = (A + kSlice - 1) / kSlice;
+  const long long units = (long long)C * ((S + kTileS - 1) / kTileS);
+  int grid = 0;
+  const int err = persistent_grid(decode_f32_kernel<KSTEPS>, kThreads, smem,
+                                  units * slices, slices, &grid);
+  if (err) return err;
+  const bool vec_in = S % 4 == 0 && reinterpret_cast<uintptr_t>(rf) % 16 == 0;
+  const bool vec_out = S % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  decode_f32_kernel<KSTEPS><<<grid, kThreads, smem, stream>>>(rf, h, out, C, A, S, scale,
+                                                               vec_in, vec_out);
+  return (int)cudaGetLastError();
+}
+
+bool valid(int C, int A, int S) {
+  return C > 0 && A > 0 && A <= kMaxOrder && S > 0;
+}
+
+// f(std::integral_constant<int, K>()) for K = ceil(A / 32), the 32-deep
+// steps of an order-A contraction (A <= 256).
+template <typename F>
+int by_steps(int A, F f) {
+  switch ((A + 31) / 32) {
+    case 1: return f(std::integral_constant<int, 1>());
+    case 2: return f(std::integral_constant<int, 2>());
+    case 3: return f(std::integral_constant<int, 3>());
+    case 4: return f(std::integral_constant<int, 4>());
+    case 5: return f(std::integral_constant<int, 5>());
+    case 6: return f(std::integral_constant<int, 6>());
+    case 7: return f(std::integral_constant<int, 7>());
+    case 8: return f(std::integral_constant<int, 8>());
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
+// int16 rf (C, A, S), int8 h (A, A) with entries +-1, float32 out (C, A, S);
+// 0 < A <= 256.
 extern "C" int decode_int16(const void* rf, const void* h, void* out, int C,
                             int A, int S, float scale, void* stream) {
-  return launch<int16_t>(rf, h, out, C, A, S, scale, stream);
+  if (!valid(C, A, S)) return (int)cudaErrorInvalidValue;
+  return by_steps(A, [&](auto k) {
+    return launch_i8<decltype(k)::value>(
+        static_cast<const int16_t*>(rf), static_cast<const int8_t*>(h),
+        static_cast<float*>(out), C, A, S, scale, static_cast<cudaStream_t>(stream));
+  });
 }
 
+// float32 rf (C, A, S), int8 h (A, A) with entries +-1, float32 out
+// (C, A, S); 0 < A <= 256.
 extern "C" int decode_f32(const void* rf, const void* h, void* out, int C,
                           int A, int S, float scale, void* stream) {
-  return launch<float>(rf, h, out, C, A, S, scale, stream);
+  if (!valid(C, A, S)) return (int)cudaErrorInvalidValue;
+  return by_steps(A, [&](auto k) {
+    return launch_f32<decltype(k)::value>(
+        static_cast<const float*>(rf), static_cast<const int8_t*>(h),
+        static_cast<float*>(out), C, A, S, scale, static_cast<cudaStream_t>(stream));
+  });
 }

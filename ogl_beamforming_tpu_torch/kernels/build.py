@@ -50,10 +50,14 @@ SIGNATURES = {
     "decode_f32": [_P, _P, _P, _I, _I, _I, _F, _P],
     # family, rf, scalars, RCA table, tx_pos, tx_weight, tx_row, out, inco,
     # channels, channel_count, rf_rows, samples, n_tx,
-    # nx, ny, nz, gnx, gny, gnz, mode, iq, coherency, frames, stream
+    # nx, ny, nz, gnx, gny, gnz, mode, iq, coherency, frames,
+    # transmits per pass of the FORCES index table, stream
     "das_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I,
-                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # family, mode, iq, coherency, frames, n_tx, transmits per pass,
+    # int* blocks per SM
+    "das_occupancy": [_I, _I, _I, _I, _I, _I, _I, _P],
     # x, omega (device float), taps (re | im), out,
     # rows, S_in, n_out, L, D, int16 input, complex taps, scale, stream
     "demodulate": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],

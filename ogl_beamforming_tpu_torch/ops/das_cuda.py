@@ -9,8 +9,10 @@ weights with rf acquisition ``e % A``; UFORCES and UHERCULES
 ``sparse_elements``, skipping acquisition 0; HERCULES row or column
 positions with the first transmit's ``1/sqrt(A)`` weight); an RCA or
 HERCULES frame gets the per-acquisition transmit table (``das.rca_tables``,
-of which HERCULES reads acquisition 0).  Everything stays on the device: no
-host synchronisation.  :func:`launch_tables` gathers them;
+of which HERCULES reads acquisition 0).  The tables stay on the device; a
+FORCES-family frame also reads its voxel spacing and sampling rate on the
+host once, to choose the pass length of the kernel's index table
+(:func:`index_table_pass`).  :func:`launch_tables` gathers them;
 they depend only on the plan, so ``build_plan`` builds them once into
 ``dyn["launch"]`` and a frame reuses them.  :func:`das_cuda` checks its
 inputs, allocates the outputs and launches ``csrc/das.cu`` on the current
@@ -19,6 +21,8 @@ of the four-frame instantiation and B % 4 of the single-frame one.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -32,6 +36,17 @@ _MODE = {InterpolationMode.Nearest: 0, InterpolationMode.Linear: 1,
 _FAMILY = {"forces": 0, "hercules": 1, "rca": 2}
 FRAMES_PER_LAUNCH = 4
 """Frames of a batch that one launch of the batched instantiations takes."""
+MAX_FORCES_TRANSMITS = 2048
+"""Most transmits a FORCES-family launch takes (``csrc/das.cu``
+``kMaxTransmits``): its per-transmit table shares 48 KB of shared memory
+with the index table."""
+WIDE_PASS, NARROW_PASS = 32, 8
+"""Transmits per pass of the FORCES kernel's index table (16 or 4 KB of
+shared memory a block)."""
+SCATTERED_BYTES = 512
+"""A warp's 32 neighbouring voxels whose samples may lie further apart than
+this (four 128-byte lines of one rf row) take the narrow pass, which leaves
+L1 more room for their gathers."""
 
 
 def prepare(dyn: dict) -> torch.Tensor:
@@ -51,11 +66,33 @@ def prepare(dyn: dict) -> torch.Tensor:
     ]).contiguous()
 
 
+def index_table_pass(st: DasStatic, dyn: dict) -> int:
+    """Transmits per pass of the FORCES kernel's index table.  The receive
+    terms are recomputed once a pass, so the wide pass costs less
+    arithmetic; but its shared memory is taken from L1, which the gathers
+    need when a warp's voxels read samples far apart.  A warp holds 32
+    voxels neighbouring along the fastest axis of the grid that has more
+    than one point; the sample index moves at most 2 fs / c per metre of
+    their spacing (each leg's distance at most as fast as the voxel), so
+    ``32 x 2 x step x fs / c`` samples bound the warp's spread.  Measured on
+    an H100 (``chip_smoke.py`` prints both passes): the Quickstart's 2D grid
+    (357 bytes) runs faster with the wide pass, path D's 128^3 volume (1047
+    bytes) with the narrow one."""
+    points = st.global_points or st.output_points
+    axis = next((k for k in (2, 1, 0) if points[k] > 1), 2)
+    column = dyn["voxel_transform"][:3, axis].double().cpu()
+    step = float(torch.linalg.vector_norm(column)) / max(points[axis] - 1, 1)
+    rate = float(dyn["sampling_frequency"]) / float(dyn["speed_of_sound"])
+    spread = 32 * 2.0 * step * rate * (8 if st.iq else 4)
+    return NARROW_PASS if spread > SCATTERED_BYTES else WIDE_PASS
+
+
 def launch_tables(st: DasStatic, dyn: dict) -> dict:
     """The kernel's scalar vector and the tables of ``st``'s family, as
     contiguous device tensors: ``rca`` (A, 8) for an RCA or HERCULES frame;
     ``tx_pos``, ``tx_weight`` and ``tx_row`` for a FORCES- or
-    HERCULES-family frame."""
+    HERCULES-family frame; and for a FORCES-family frame ``tx_pass``, the
+    index table's pass (:func:`index_table_pass`)."""
     tables = {"scalars": prepare(dyn)}
     if st.family in ("rca", "hercules"):
         tables["rca"] = rca_tables(dyn)
@@ -64,6 +101,8 @@ def launch_tables(st: DasStatic, dyn: dict) -> dict:
         tables["tx_pos"] = tx_pos.to(torch.float32).contiguous()
         tables["tx_weight"] = weight.to(torch.float32).contiguous()
         tables["tx_row"] = row.to(torch.int32).contiguous()
+    if st.family == "forces":
+        tables["tx_pass"] = index_table_pass(st, dyn)
     return tables
 
 
@@ -72,6 +111,21 @@ def launch_name(st: DasStatic, frames: int = 1) -> str:
     ``st``'s family: ``das_forces``, ``das_hercules``, ``das_rca``, and
     ``..._fb4`` for the four-frame instantiation."""
     return f"das_{st.family}" + (f"_fb{frames}" if frames > 1 else "")
+
+
+def blocks_per_sm(st: DasStatic, n_tx: int, tx_pass: int = WIDE_PASS,
+                  frames: int = 1) -> int:
+    """Blocks of 128 voxels that one SM holds at once for the kernel of
+    ``st`` with ``n_tx`` transmits (or acquisitions) and, for FORCES, an
+    index table of ``tx_pass`` transmits: the occupancy its registers and
+    shared memory allow (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    blocks = ctypes.c_int(0)
+    code = build.library().das_occupancy(
+        _FAMILY[st.family], _MODE[st.interpolation_mode], int(st.iq),
+        int(st.coherency_weighting), frames, n_tx, tx_pass,
+        ctypes.byref(blocks))
+    build.check("das_occupancy", code)
+    return blocks.value
 
 
 def _chunks(batch: int):
@@ -127,6 +181,9 @@ def das_cuda(rf: torch.Tensor, dyn: dict, st: DasStatic):
         tx = (None, None, None)
     else:
         n_tx = tables["tx_pos"].shape[0]
+        if st.family == "forces" and n_tx > MAX_FORCES_TRANSMITS:
+            raise ValueError(f"the FORCES DAS kernel takes at most "
+                             f"{MAX_FORCES_TRANSMITS} transmits, got {n_tx}")
         tx = tuple(tables[k].data_ptr()
                    for k in ("tx_pos", "tx_weight", "tx_row"))
     tab = tables["rca"].data_ptr() if "rca" in tables else None
@@ -144,7 +201,8 @@ def das_cuda(rf: torch.Tensor, dyn: dict, st: DasStatic):
             scalars.data_ptr(), tab, *tx, out.data_ptr() + first * out_frame,
             None if inco is None else inco.data_ptr() + first * inco_frame,
             channels, st.channel_count, rf_rows, samples, n_tx,
-            nx, ny, nz, gnx, gny, gnz, *flags, frames, stream)
+            nx, ny, nz, gnx, gny, gnz, *flags, frames,
+            tables.get("tx_pass", WIDE_PASS), stream)
         name = launch_name(st, frames)
         build.check(name, code)
         build.LAUNCHES[name] += 1

@@ -5,7 +5,10 @@ axis, written as float32 (C, A, S) (complex64 for complex input).
 
 :func:`decode_hadamard_ref` is the plain-torch twin; :func:`decode_hadamard`
 dispatches on the tensor's device: a CPU tensor takes the twin, a CUDA tensor
-takes the hand-written kernel (``csrc/decode.cu``) or raises.
+takes the hand-written kernel (``csrc/decode.cu``) or raises: int16 input
+runs on the int8 tensor cores (two exact int8 halves, bit for bit the twin),
+float32 and complex64 on the bf16 tensor cores (three exact bf16 terms,
+within 1e-6 of the peak), for any order up to :data:`MAX_ORDER`.
 """
 
 from __future__ import annotations
@@ -15,6 +18,10 @@ import torch
 
 from ..kernels import build
 from ..utils.hadamard import hadamard as _hadamard_host
+
+
+MAX_ORDER = 256
+"""Largest order A the kernels take (the reference's emission limit)."""
 
 
 def hadamard_matrix(order: int, device, dtype=torch.float32) -> torch.Tensor:
@@ -45,13 +52,16 @@ def decode_hadamard_ref(rf: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 def decode_hadamard_cuda(rf: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA decode kernel.  ``rf``: contiguous CUDA (C, A, S)
     int16, float32 or complex64; ``h``: (A, A) with entries +-1 (a Hadamard
-    or Walsh matrix) on the same device."""
+    or Walsh matrix) on the same device; 0 < A <= :data:`MAX_ORDER`."""
     if not rf.is_cuda or h.device != rf.device:
         raise ValueError("decode_hadamard_cuda needs rf and h on one CUDA "
                          f"device, got {rf.device} and {h.device}")
     if rf.dim() != 3 or h.shape != (rf.shape[1], rf.shape[1]):
         raise ValueError(f"rf must be (C, A, S) and h (A, A); got "
                          f"{tuple(rf.shape)} and {tuple(h.shape)}")
+    if not 0 < rf.shape[1] <= MAX_ORDER:
+        raise ValueError(f"decode kernel takes orders 1..{MAX_ORDER}, got "
+                         f"{rf.shape[1]}")
     if not rf.is_contiguous():
         raise ValueError("rf must be contiguous")
     cplx = rf.is_complex()

@@ -145,32 +145,40 @@ def _on_card(values) -> bool:
     return False
 
 
+TRACE_ATTEMPTS = 3
+"""Traces of one call :func:`device_time` takes before it gives up on kernel
+events: among many short back-to-back traces, CUPTI now and then delivers
+none for one of them."""
+
+
 def device_time(fn, *args, warmup: int = 1, logdir: str | None = None,
                 **kwargs) -> DeviceProfile:
     """Trace ONE call of ``fn(*args, **kwargs)`` and return its device
     profile.  ``warmup`` untraced calls first keep kernel builds and first
     allocations out of the trace.  ``fn`` returns the tensor(s) it produced;
     :func:`utils.device.sync` on them ends the window, and a call whose
-    arguments or result lie on the card must show kernel events.  Export
-    the trace into ``logdir`` to keep it."""
+    arguments or result lie on the card must show kernel events: a trace
+    without them is taken again, and after :data:`TRACE_ATTEMPTS` traces
+    without them it raises.  Export the trace into ``logdir`` to keep it."""
     for _ in range(max(warmup, 0)):
         sync(fn(*args, **kwargs))
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    with torch.profiler.profile(activities=_activities()) as prof:
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        sync(out)
-        window = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory(prefix="bf_prof_") as tmp:
-        path = logdir or tmp
-        os.makedirs(path, exist_ok=True)
-        prof.export_chrome_trace(
-            os.path.join(path, f"trace_{time.time_ns()}.json"))
-        result = _parse_trace(path)
-    result.window_seconds = window
-    if _on_card(list(args) + [out]) and not result.kernels:
-        raise RuntimeError(
-            "the profiler traced work on the card but recorded no CUDA "
-            "kernel events (CUPTI tracing unavailable?)")
-    return result
+    for _ in range(TRACE_ATTEMPTS):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        with torch.profiler.profile(activities=_activities()) as prof:
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync(out)
+            window = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory(prefix="bf_prof_") as tmp:
+            path = logdir or tmp
+            os.makedirs(path, exist_ok=True)
+            prof.export_chrome_trace(
+                os.path.join(path, f"trace_{time.time_ns()}.json"))
+            result = _parse_trace(path)
+        result.window_seconds = window
+        if result.kernels or not _on_card(list(args) + [out]):
+            return result
+    raise RuntimeError(
+        f"the profiler traced work on the card but recorded no CUDA kernel "
+        f"events in {TRACE_ATTEMPTS} traces (CUPTI tracing unavailable?)")

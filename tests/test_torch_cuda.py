@@ -49,7 +49,7 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("a", [2, 4, 12, 16, 20, 128, 256])
+@pytest.mark.parametrize("a", [2, 4, 12, 16, 20, 32, 64, 128, 256])
 def test_decode_int16_exact(dev, a):
     rng = np.random.default_rng(a)
     rf = torch.from_numpy(rng.integers(-32768, 32767, (3, a, 1000),
@@ -71,6 +71,64 @@ def test_decode_float_and_complex(dev, dtype):
     ref = decode.decode_hadamard_ref(rf, h)
     assert out.dtype == dtype and out.shape == rf.shape
     assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("s", [64, 999, 1000, 4097])
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("a", [12, 16, 20, 32, 64, 128, 256])
+def test_decode_int16_edges(dev, a, c, s):
+    """Bit-equal at every order the paths use, C = 1 and odd C, sample
+    counts off the kernel's 64-sample tile and off its 16-byte copies (999:
+    rows not 16-byte aligned), with the int16 extremes in every row."""
+    rng = np.random.default_rng(1000 * a + 10 * c + s % 7)
+    x = rng.integers(-32768, 32768, (c, a, s)).astype(np.int16)
+    x[:, :, 0] = -32768
+    x[:, :, -1] = 32767
+    x[:, ::2, s // 2] = -32768
+    x[:, 1::2, s // 2] = 32767
+    rf = torch.from_numpy(x).to(dev)
+    h = decode.hadamard_matrix(a, device=dev)
+    before = build.LAUNCHES["decode_hadamard"]
+    out = decode.decode_hadamard(rf, h)
+    assert build.LAUNCHES["decode_hadamard"] == before + 1
+    assert torch.equal(out, decode.decode_hadamard_ref(rf, h))
+
+
+def test_decode_int16_all_extremes(dev):
+    """Every product at its extreme: H's rows against +-32768 and 32767."""
+    h = decode.hadamard_matrix(128, device=dev)
+    signs = h[3].to(torch.int32)
+    x = torch.where(signs > 0, 32767, -32768).to(torch.int16)
+    rf = x[None, :, None].expand(2, 128, 130).contiguous()
+    assert torch.equal(decode.decode_hadamard(rf, h),
+                       decode.decode_hadamard_ref(rf, h))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
+@pytest.mark.parametrize("c, a, s", [(1, 12, 999), (3, 20, 1000),
+                                     (1, 64, 4097), (3, 128, 2048),
+                                     (1, 256, 700)])
+def test_decode_float_orders(dev, dtype, c, a, s):
+    """float32 and complex64 at 1e-6 of the peak, across orders and ragged
+    sample counts."""
+    rng = np.random.default_rng(a + s)
+    x = rng.standard_normal((c, a, s)).astype(np.float32) * 1000
+    rf = torch.from_numpy(x).to(dev)
+    if dtype == torch.complex64:
+        rf = torch.complex(rf, torch.from_numpy(x[:, ::-1].copy()).to(dev))
+    h = decode.hadamard_matrix(a, device=dev)
+    out = decode.decode_hadamard(rf, h)
+    ref = decode.decode_hadamard_ref(rf, h)
+    assert out.dtype == dtype and out.shape == rf.shape
+    assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-6
+
+
+def test_decode_rejects_order_above_limit(dev):
+    rf = torch.zeros((1, decode.MAX_ORDER + 1, 8), dtype=torch.int16,
+                     device=dev)
+    h = torch.ones((decode.MAX_ORDER + 1,) * 2, device=dev)
+    with pytest.raises(ValueError, match="order"):
+        decode.decode_hadamard(rf, h)
 
 
 def test_decode_rejects_unsupported_dtype(dev):
@@ -170,6 +228,52 @@ def test_das_kernel_slab_offsets(dev):
     st = dataclasses.replace(das.make_static(p, iq=False),
                              global_points=(12, 16, 1))
     _compare(das.das(rf, dyn, st), das.das_ref(rf, dyn, st))
+
+
+@pytest.mark.parametrize("tx_pass", [das_cuda.NARROW_PASS,
+                                     das_cuda.WIDE_PASS])
+@pytest.mark.parametrize("fb", [1, 4])
+@pytest.mark.parametrize("coherency", [False, True])
+@pytest.mark.parametrize("iq", [False, True])
+@pytest.mark.parametrize("interp", list(InterpolationMode))
+@pytest.mark.parametrize("n_tx", [1, das_cuda.MAX_FORCES_TRANSMITS])
+def test_forces_kernel_transmit_extremes(dev, n_tx, interp, iq, coherency,
+                                         fb, tx_pass):
+    """FORCES at one transmit and at the most the kernel takes, with either
+    pass of the index table, over 13 x 11 voxels (not a multiple of the
+    128-voxel block): each frame against a single-frame launch (1e-6) and
+    the twin (1e-4)."""
+    import dataclasses
+    p = dataclasses.replace(
+        _das_params("forces", interp, coherency, (13, 11, 1)),
+        acquisition_count=n_tx)
+    dyn, st1 = das.make_dynamic(p, dev), das.make_static(p, iq=iq)
+    dyn["launch"] = dict(das_cuda.launch_tables(st1, dyn), tx_pass=tx_pass)
+    st = dataclasses.replace(st1, frame_batch=fb)
+    frames = torch.stack([_rf(p, iq, dev) * (1.0 + b) for b in range(fb)])
+    name = "das_forces" + ("_fb4" if fb == 4 else "")
+    before = build.LAUNCHES[name]
+    out = das.das(frames if fb > 1 else frames[0], dyn, st)
+    assert build.LAUNCHES[name] == before + 1
+    ref = das.das_ref(frames if fb > 1 else frames[0], dyn, st)
+    _compare(out, ref)
+    if fb > 1:
+        for b in range(fb):
+            one = das.das(frames[b].contiguous(), dyn, st1)
+            pairs = zip(out, one) if coherency else [(out, one)]
+            for o, r in pairs:
+                _close(o[b], r)
+
+
+def test_forces_kernel_rejects_too_many_transmits(dev):
+    import dataclasses
+    p = dataclasses.replace(
+        _das_params("forces", InterpolationMode.Linear, False),
+        acquisition_count=das_cuda.MAX_FORCES_TRANSMITS + 1)
+    dyn, st = das.make_dynamic(p, dev), das.make_static(p, iq=False)
+    rf = _rf(p, False, dev)
+    with pytest.raises(ValueError, match="transmits"):
+        das.das(rf, dyn, st)
 
 
 def _hercules_params(kind, orient, interp, coherency, focus=np.inf):

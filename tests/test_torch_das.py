@@ -314,3 +314,34 @@ def test_undispatched_kind_gives_zero_frame():
     p.acquisition_kind = AcquisitionKind.RACES
     out = _port(_rf(p, False), p, False)
     assert out.shape == POINTS and not out.any()
+
+
+@pytest.mark.parametrize("preset, iq, want", [
+    ("quickstart", False, "wide"), ("path_b", True, "wide"),
+    ("path_d", False, "narrow")])
+def test_index_table_pass_follows_the_sample_spread(preset, iq, want):
+    """The FORCES kernel's index table takes the wide pass where a warp's
+    voxels read nearby samples (the 2D presets) and the narrow one where
+    they are scattered (uFORCES 128^3), as measured on the card."""
+    from ogl_beamforming_tpu_torch.models import presets
+    from ogl_beamforming_tpu_torch.ops import das_cuda
+    from ogl_beamforming_tpu_torch.pipeline.plan import build_plan
+    from ogl_beamforming_tpu_torch.utils.filters import make_filter
+    from ogl_beamforming_tpu_torch import (FilterKind, FilterParameters,
+                                           KaiserFilterParameters)
+    filters, sparse = {}, None
+    if preset == "path_d":
+        p, pipe, sparse = presets.uforces_volumetric(channel_count=16,
+                                                     acquisition_count=8)
+    else:
+        p, pipe = presets.forces_compounding(
+            channel_count=8, transmit_count=8, sample_count=4096,
+            demodulate=preset == "path_b")
+        filters = {0: make_filter(FilterParameters(
+            kind=FilterKind.Kaiser, sampling_frequency=20e6,
+            kaiser=KaiserFilterParameters(2e6, 4.0, 16)))}
+    plan = build_plan(p, pipe, filters, sparse_elements=sparse, device="cpu")
+    st, dyn = plan.descriptor.stages[-1].das, plan.dyn["das"]
+    assert st.iq == iq
+    assert das_cuda.index_table_pass(st, dyn) == (
+        das_cuda.WIDE_PASS if want == "wide" else das_cuda.NARROW_PASS)
