@@ -14,7 +14,8 @@ line:
   2. build    compiles csrc/*.cu with nvcc for sm_90a (kernels/build.py),
               one nvcc per source, all started together; prints the decode
               kernels' registers and the static SASS instructions per pair
-              of das_forces_kernel's pair loop (kernels/sass.py).
+              of the pair loops of das_forces_kernel, das_hercules_kernel
+              and das_rca_kernel (kernels/sass.py).
   3. kernels  each kernel against its plain-torch twin on the card at its
               path's shapes: int16 decode (128, 128, 4096), (128, 128,
               2048) at path C and (256, 64, 2048) at path D bit-equal, an
@@ -32,7 +33,8 @@ line:
               x 2048 -> 128^3 (path D, both volumes) to NRMSE 1e-4, and
               the four-frame RCA launch at path E's batch (4 x 256 x 1 x
               4096 complex) against four single-frame launches (1e-6) and
-              its twin (1e-4), timed beside those four launches;
+              its twin (1e-4) and bit-equal to them, timed beside those
+              four launches;
               demodulate int16 (128, 128, 4096)
               with the 16-tap Kaiser low-pass (and a complex chirp at D = 2)
               and FIR complex64 (128, 128, 2048) with real and complex taps
@@ -40,9 +42,13 @@ line:
               interquartile range of 21 runs), its twin (median of 5) and,
               where one PyTorch call computes the same function, that call
               (median of 21); and each kernel's bound from its bytes and
-              operations; for each FORCES DAS row the kernel's registers,
-              resident warps per SM, SASS instructions per pair and its
-              time at each pass of the index table (8 and 32 transmits).
+              operations; for each DAS row the kernel's registers,
+              resident warps per SM and SASS instructions per pair; for
+              FORCES its time at each pass of the index table (8 and 32
+              transmits); for HERCULES the run groups, the bound with
+              the run's share counted per triple beside the recounted one,
+              and its time walking each channel's transmit interval and
+              the whole table.
   4. canary   reduced configurations through Beamformer(device="cuda")
               against the NumPy golden oracle, NRMSE <= 1e-3: FORCES decode
               -> DAS, one frame and a batch of two through push_batch; path
@@ -124,26 +130,34 @@ PEAK_INT8_PER_S = 1979e12
 # float32 operations per active pair of a DAS kernel, counted from
 # csrc/das.cu (a square root, division, cosine or sincos counts as one):
 # FORCES real cubic: index 1, cubic tap 26, weights and sum 3; FORCES IQ
-# cubic: index 1, complex cubic tap 35, rotation 10, weights and sum 5; RCA
-# IQ cubic: receive leg 16, complex cubic tap 35, rotation 10, scale and sum
-# 4.  The FORCES transmit leg (a square root, two products and a sum: 5)
-# is paid once per (voxel, transmit), not per pair.
+# cubic: index 1, complex cubic tap 35, rotation 10, weights and sum 5;
+# FORCES real linear with the incoherent sum: index 1, linear tap 8,
+# weights and sum 3, incoherent sum 2; RCA IQ cubic: receive leg 16, complex
+# cubic tap 35, rotation 10, scale and sum 4; a four-frame RCA IQ cubic
+# launch pays the pair's geometry once (receive leg 16, tap weights 13,
+# phase 4) and the rest per frame (complex cubic gather 22, rotation 6,
+# scale and sum 4).  The FORCES transmit leg (a square root, two products
+# and a sum: 5) is paid once per (voxel, transmit), not per pair.
 OPS_FORCES_REAL_CUBIC = 30
 OPS_FORCES_IQ_CUBIC = 51
 OPS_FORCES_TX_LEG = 5
-OPS_RCA_IQ_CUBIC = 65
-# HERCULES real linear, per (voxel, channel, transmit) triple inside the 2D
-# mask: transmit distance and mask 4, apodization 6 (square root, two
-# products, cosine, square, weight), index 4, linear tap 8, scale and sum 2.
-# FORCES real linear with the incoherent sum: index 1, linear tap 8,
-# weights and sum 3, incoherent sum 2.  A four-frame RCA IQ
-# cubic launch pays the pair's geometry once (receive leg 16, tap weights
-# 13, phase 4) and the rest per frame (complex cubic gather 22, rotation 6,
-# scale and sum 4).
-OPS_HERCULES_REAL_LINEAR = 24
 OPS_FORCES_REAL_LINEAR_COH = 14
+OPS_RCA_IQ_CUBIC = 65
 OPS_RCA_IQ_CUBIC_SHARED = 33
 OPS_RCA_IQ_CUBIC_FRAME = OPS_RCA_IQ_CUBIC - OPS_RCA_IQ_CUBIC_SHARED
+# HERCULES real linear, per (voxel, channel, transmit) triple inside the 2D
+# mask, all of it counted per triple: transmit distance and mask 4,
+# apodization 6
+# (square root, two products, cosine, square, weight), index 4, linear tap
+# 8, scale and sum 2.  Along a run of voxels whose lateral coordinates are
+# equal (a column of depths at path C: das_cuda.lateral_run) part of that is
+# the run's, not the voxel's: the transmit offset, its square, d2 and
+# sqrt(d2), 4, counted once per (run, channel, transmit) with a voxel of the
+# run inside the mask; what stays per triple is the mask 1, apodization 4
+# (product, cosine, square, weight), index 4, linear tap 8, scale and sum 2.
+OPS_HERCULES_REAL_LINEAR_PER_TRIPLE = 24
+OPS_HERCULES_REAL_LINEAR = 19
+OPS_HERCULES_RUN = 4
 FRAME_BATCH = 4   # frames per push_batch on path E
 
 PKG = "ogl_beamforming_tpu_torch"
@@ -251,54 +265,63 @@ def phase_build() -> None:
     log = build.library_path().with_suffix(".log")
     usage = sass.ptxas_usage(log.read_text()) if log.exists() else {}
     BUILD_FACTS["usage"] = usage
-    BUILD_FACTS["loops"] = sass.forces_loops(sass.dump(build.library_path()))
+    text = sass.dump(build.library_path())
+    BUILD_FACTS["loops"] = {f: sass.pair_loops(text, f) for f in sass.FAMILIES}
     decode = "; ".join(f"{m.group(1)} {regs} registers, {spill} B spilled"
                        for name, (regs, spill) in sorted(usage.items())
                        for m in [re.search(r"(decode_(?:i8|f32)_kernel(?:ILi\d)?)",
                                            name)] if m)
     print(f"[build] {build.library_path().name} in {dt:.1f} s "
           f"(ptxas: {len(usage)} kernels; decode: {decode})")
-    print("[build] das_forces_kernel inner pair loop (cuobjdump -sass, "
-          "static; instructions / pairs in the unrolled body -> per pair; "
-          "LDG, LDS, MUFU): " + "; ".join(
-              f"{k} {c['instructions']}/{c['pairs']:g} -> "
-              f"{c['per_pair']:.1f} ({c['LDG']}, {c['LDS']}, {c['MUFU']})"
-              for k, c in sorted(BUILD_FACTS["loops"].items())
-              if k.endswith("fb1")))
+    for family, loops in BUILD_FACTS["loops"].items():
+        print(f"[build] das_{family}_kernel inner pair loop (cuobjdump -sass, "
+              "static; instructions / pairs in the unrolled body -> per "
+              "pair; LDG, LDS, MUFU): " + "; ".join(
+                  f"{k} {c['instructions']}/{c['pairs']:g} -> "
+                  f"{c['per_pair']:.1f} ({c['LDG']}, {c['LDS']}, {c['MUFU']})"
+                  for k, c in sorted(loops.items()) if k.endswith("fb1")))
 
 
 BUILD_FACTS: dict = {}   # ptxas usage and SASS loop counts (phase 2)
 
 
-def forces_facts(st, dyn) -> str:
-    """Registers, spills, resident warps, the index table's pass and the
-    inner loop's SASS count of the das_forces_kernel instantiation that runs
-    ``st``."""
+def kernel_facts(st, dyn, frames: int = 1) -> str:
+    """Registers, spills, resident warps and the inner loop's SASS count of
+    the DAS kernel instantiation that runs ``st`` (``frames`` frames a
+    launch), with the FORCES index table's pass."""
     from ogl_beamforming_tpu_torch.kernels import sass
     from ogl_beamforming_tpu_torch.ops import das_cuda
     mode = das_cuda._MODE[st.interpolation_mode]
-    tag = (f"das_forces_kernelILi{mode}ELb{int(st.iq)}"
-           f"ELb{int(st.coherency_weighting)}ELi1E")
+    tag = (f"das_{st.family}_kernelILi{mode}ELb{int(st.iq)}"
+           f"ELb{int(st.coherency_weighting)}ELi{frames}E")
     regs = [v for k, v in BUILD_FACTS["usage"].items() if tag in k]
     check(len(regs) == 1, f"no single ptxas entry for {tag}")
     tables = dyn.get("launch") or das_cuda.launch_tables(st, dyn)
-    n_tx, chunk = tables["tx_pos"].shape[0], tables["tx_pass"]
-    blocks = das_cuda.blocks_per_sm(st, n_tx, chunk)
+    n_tx = (tables["tx_pos"].shape[0] if "tx_pos" in tables
+            else st.acquisition_count)
+    chunk = tables.get("tx_pass", das_cuda.WIDE_PASS)
+    blocks = das_cuda.blocks_per_sm(st, n_tx, chunk, frames)
     check(blocks > 0, f"{tag}: no block fits on an SM")
     key = (f"{sass.MODES[mode]} {'iq' if st.iq else 'real'}"
-           f"{' coh' if st.coherency_weighting else ''} fb1")
-    loop = BUILD_FACTS["loops"].get(key)
+           f"{' coh' if st.coherency_weighting else ''} fb{frames}")
+    loop = BUILD_FACTS["loops"][st.family].get(key)
     per_pair = f"{loop['per_pair']:.1f}" if loop else "not found"
+    table = (f", {chunk} a pass of the index table" if st.family == "forces"
+             else f", runs of {tables['run']} voxels")
     return (f"{regs[0][0]} registers, {regs[0][1]} B spilled, {blocks} "
             f"blocks = {4 * blocks} resident warps per SM at {n_tx} "
-            f"transmits, {chunk} a pass of the index table; inner loop "
-            f"{per_pair} SASS instructions per pair")
+            f"transmits{table}; inner loop {per_pair} SASS instructions "
+            f"per pair")
 
 
-def active_pairs(st, dyn) -> int:
+def active_pairs(st, dyn) -> tuple[int, int]:
     """(voxel, channel, transmit-or-acquisition) triples inside the
-    apodization mask: the pairs the DAS kernels compute."""
+    apodization mask -- the pairs the DAS kernels compute -- and, for
+    HERCULES, the (run, channel, transmit) groups with a voxel of the run
+    inside it, where a run is das_cuda.lateral_run voxels that share their
+    lateral coordinates (0 for the other families)."""
     from ogl_beamforming_tpu_torch.ops import das as das_ops
+    from ogl_beamforming_tpu_torch.ops import das_cuda
     world = das_ops._world_points(st, dyn)
     chans = das_ops._channels(dyn, st.channel_count)
     fnum = dyn["f_number"]
@@ -306,24 +329,34 @@ def active_pairs(st, dyn) -> int:
         x, z = world[:, 0:1], world[:, 2:3]
         rx_dx = x - chans[None] * dyn["xdc_element_pitch"][0]
         on = torch.abs(fnum * rx_dx / z) < 0.5
-        return int(on.sum()) * len(das_ops.transmit_tables(st, dyn)[0])
+        return int(on.sum()) * len(das_ops.transmit_tables(st, dyn)[0]), 0
     xdc = das_ops._apply_m4(dyn["xdc_transform"], world)
     if st.family == "hercules":
         # the 2D mask d2 < z^2 / (4 f#^2) over (channel, transmit), as the
-        # twin forms it, one channel at a time
+        # twin forms it, one channel at a time; a run's groups at the
+        # largest bound of its voxels
         rx_cols = bool(das_ops._rx_columns(dyn))
         rx_lat, tx_lat = ((xdc[:, 0], xdc[:, 1]) if rx_cols
                           else (xdc[:, 1], xdc[:, 0]))
         pitch = dyn["xdc_element_pitch"][0 if rx_cols else 1]
         foz = torch.abs(fnum / xdc[:, 2])
         test = 0.25 / (foz * foz)
-        tx_dd = tx_lat[None] - das_ops.transmit_tables(st, dyn)[0][:, None]
+        tx_pos = das_ops.transmit_tables(st, dyn)[0]
+        tx_dd = tx_lat[None] - tx_pos[:, None]
         tx_d2 = tx_dd * tx_dd
-        total = 0
+        run = das_cuda.lateral_run(st, dyn)
+        run_test = test.reshape(-1, run).amax(dim=1)
+        run_rx, run_tx = rx_lat[::run], tx_lat[::run]
+        run_tx_dd = run_tx[None] - tx_pos[:, None]
+        run_tx_d2 = run_tx_dd * run_tx_dd
+        total = groups = 0
         for ch in chans:
             rx_dd = rx_lat - ch * pitch
             total += int(((rx_dd * rx_dd)[None] + tx_d2 < test[None]).sum())
-        return total
+            run_dd = run_rx - ch * pitch
+            groups += int(((run_dd * run_dd)[None] + run_tx_d2
+                           < run_test[None]).sum())
+        return total, groups
     tabs = das_ops.rca_tables(dyn)
     total = 0
     for a in range(st.acquisition_count):
@@ -333,7 +366,7 @@ def active_pairs(st, dyn) -> int:
         recv_lat = lat - chans[None] * pitch
         total += int((torch.abs(fnum * recv_lat / torch.abs(xdc[:, 2:3]))
                       < 0.5).sum())
-    return total
+    return total, 0
 
 
 def pass_times(rf, dyn, st):
@@ -348,11 +381,33 @@ def pass_times(rf, dyn, st):
     return out
 
 
-def das_row(name, label, rf, dyn, st, ops_per_pair) -> dict:
+def walk_times(rf, dyn, st):
+    """(walk, median ms) of the HERCULES kernel walking each channel's
+    transmit interval and the whole table, each launch's output equal to
+    the other's bit for bit."""
+    from ogl_beamforming_tpu_torch.ops import das_cuda
+    tables = dyn.get("launch") or das_cuda.launch_tables(st, dyn)
+    ref = das_cuda.das_cuda(rf, dyn, st)
+    out = []
+    for label, walk in (("interval", das_cuda.INTERVAL_WALK),
+                        ("full", das_cuda.FULL_WALK)):
+        d = dict(dyn, launch=dict(tables, tx_walk=walk))
+        check(torch.equal(das_cuda.das_cuda(rf, d, st), ref),
+              f"HERCULES {label} walk != the launch tables' walk")
+        out.append((label,
+                    median_ms(lambda: das_cuda.das_cuda(rf, d, st))))
+    return out
+
+
+def das_row(name, label, rf, dyn, st, ops_per_pair,
+            ops_per_triple=None) -> dict:
     """The DAS kernel against its twin on ``rf`` (each output, coherent and
     incoherent, to NRMSE 1e-4), both timed, the line printed; returns the
     kernel's row, its bound from ``ops_per_pair`` per active pair (and, for
-    FORCES, the transmit leg once per voxel and transmit)."""
+    FORCES, the transmit leg once per voxel and transmit; for HERCULES, the
+    run's share once per group of active_pairs, with the bound of
+    ``ops_per_triple`` per pair, all of it per triple, printed beside
+    it)."""
     from ogl_beamforming_tpu_torch.ops import das as das_ops
     from ogl_beamforming_tpu_torch.ops import das_cuda
     outs_k = das_cuda.das_cuda(rf, dyn, st)
@@ -368,22 +423,32 @@ def das_row(name, label, rf, dyn, st, ops_per_pair) -> dict:
     twin_s = time.perf_counter() - t0
     ms, iqr = kernel_ms(lambda: das_cuda.das_cuda(rf, dyn, st))
     out_bytes = sum(k.numel() * k.element_size() for k in outs_k)
-    pairs = active_pairs(st, dyn)
+    pairs, groups = active_pairs(st, dyn)
     nops = ops_per_pair * pairs
-    facts = ""
+    nbytes = rf.numel() * rf.element_size() + out_bytes
+    facts = "; " + kernel_facts(st, dyn)
     if st.family == "forces":
         voxels = int(np.prod(st.output_points))
         nops += (OPS_FORCES_TX_LEG * voxels
                  * len(das_ops.transmit_tables(st, dyn)[0]))
-        facts = "; " + forces_facts(st, dyn) + "; by pass: " + ", ".join(
+        facts += "; by pass: " + ", ".join(
             f"{p} transmits {ms_p:.3f} ms" for p, ms_p in pass_times(rf, dyn, st))
+    elif st.family == "hercules":
+        nops += OPS_HERCULES_RUN * groups
+        flat, _ = bound(nbytes, ops_per_triple * pairs)
+        new, _ = bound(nbytes, nops)
+        facts += (f"; {groups} run groups; bound {new:.3f} ms ({ops_per_pair}"
+                  f" per pair + the run's share), all per triple "
+                  f"{flat:.3f} ms ({ops_per_triple} per pair)")
+    if st.family == "hercules":
+        facts += "; by walk: " + ", ".join(
+            f"{w} {ms_w:.3f} ms" for w, ms_w in walk_times(rf, dyn, st))
     print(f"[kernels] DAS {label} {tuple(rf.shape)} -> {st.output_points}: "
           f"NRMSE {worst:.3e}, max abs err {err:.3e}; kernel {ms:.3f} ms "
           f"(IQR {iqr:.3f}), plain {plain_ms:.3f} ms; {pairs} active pairs; "
           f"twin took {twin_s:.1f} s{facts}")
     return kernel_row(name, "das.cu", "ops/das_pallas.py:1963", err, ms,
-                      plain_ms, rf.numel() * rf.element_size() + out_bytes,
-                      nops, iqr=iqr)
+                      plain_ms, nbytes, nops, iqr=iqr)
 
 
 def forces_frame_batch(rf, dyn, st) -> None:
@@ -650,11 +715,11 @@ def phase_kernels_volumes(dev) -> list[dict]:
 
     rng = np.random.default_rng(4321)
     rows = []
-    for label, name, ops in (
+    for label, name, ops, ops_per_triple in (
             ("HERCULES linear (path C)", "das_hercules",
-             OPS_HERCULES_REAL_LINEAR),
+             OPS_HERCULES_REAL_LINEAR, OPS_HERCULES_REAL_LINEAR_PER_TRIPLE),
             ("UFORCES linear + incoherent sum (path D)", "das_forces_coh3d",
-             OPS_FORCES_REAL_LINEAR_COH)):
+             OPS_FORCES_REAL_LINEAR_COH, None)):
         if name == "das_hercules":
             params, pipe = presets.hercules_3d()
             plan = build_plan(params, pipe, {}, device=dev)
@@ -668,7 +733,7 @@ def phase_kernels_volumes(dev) -> list[dict]:
                  st.sample_count)
         rf = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
                               ).to(dev)
-        rows.append(das_row(name, label, rf, dyn, st, ops))
+        rows.append(das_row(name, label, rf, dyn, st, ops, ops_per_triple))
         del rf
 
     # the four-frame RCA launch at path E's batch, against four
@@ -687,6 +752,7 @@ def phase_kernels_volumes(dev) -> list[dict]:
     ones = [das_cuda.das_cuda(rf[b], dyn, st1) for b in range(FRAME_BATCH)]
     torch.cuda.synchronize()
     equal = all(torch.equal(out4[b], ones[b]) for b in range(FRAME_BATCH))
+    check(equal, "four-frame RCA launch != single-frame launches bit for bit")
     fb_err = max(compare(out4[b], ones[b], 1e-6, f"four-frame RCA frame {b}")
                  for b in range(FRAME_BATCH))
     twin = das_ops.das_ref(rf, dyn, st4)
@@ -697,19 +763,20 @@ def phase_kernels_volumes(dev) -> list[dict]:
         lambda: [das_cuda.das_cuda(rf[b], dyn, st1)
                  for b in range(FRAME_BATCH)])
     plain_ms = median_ms(lambda: das_ops.das_ref(rf, dyn, st4), RUNS)
-    pairs = active_pairs(st1, dyn)
+    pairs, _ = active_pairs(st1, dyn)
     print(f"[kernels] DAS RCA Flash cubic IQ, {FRAME_BATCH} frames in one "
           f"launch {tuple(shape)} -> {st1.output_points}: vs single-frame "
           f"launches max abs err {fb_err:.3e}, bit-equal {equal}; vs twin "
           f"NRMSE {worst:.3e}; one {FRAME_BATCH}-frame launch {ms:.3f} ms "
           f"(IQR {iqr:.3f}), {FRAME_BATCH} single-frame launches "
           f"{ones_ms:.3f} ms (IQR {ones_iqr:.3f}); plain {plain_ms:.3f} ms; "
-          f"{pairs} active pairs per frame")
+          f"{pairs} active pairs per frame; "
+          f"{kernel_facts(st1, dyn, FRAME_BATCH)}")
     rows.append(kernel_row(
         "das_rca_fb4", "das.cu", "ops/das_pallas.py:1963", max(err, fb_err),
         ms, plain_ms, rf.numel() * 8 + out4.numel() * 8,
         pairs * (OPS_RCA_IQ_CUBIC_SHARED
-                 + FRAME_BATCH * OPS_RCA_IQ_CUBIC_FRAME)))
+                 + FRAME_BATCH * OPS_RCA_IQ_CUBIC_FRAME), iqr=iqr))
     return rows
 
 

@@ -51,10 +51,11 @@ SIGNATURES = {
     # family, rf, scalars, RCA table, tx_pos, tx_weight, tx_row, out, inco,
     # channels, channel_count, rf_rows, samples, n_tx,
     # nx, ny, nz, gnx, gny, gnz, mode, iq, coherency, frames,
-    # transmits per pass of the FORCES index table, stream
+    # transmits per pass of the FORCES index table, run of equal lateral
+    # coordinates and transmit walk (HERCULES, RCA), stream
     "das_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I,
-                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # family, mode, iq, coherency, frames, n_tx, transmits per pass,
     # int* blocks per SM
     "das_occupancy": [_I, _I, _I, _I, _I, _I, _I, _P],

@@ -1,15 +1,17 @@
 """Static SASS counts of the DAS kernels' inner pair loop.
 
 ``cuobjdump -sass`` of a built library (or of one ``.cu`` source compiled to
-a cubin for ``sm_90a``) is split into functions; in each
-``das_forces_kernel`` instantiation the innermost loops that load RF samples
-(``LDG``) are found from the backward branches, and the one with the most
-loads -- the unrolled body of the pair loop -- is counted: its instructions,
-its ``LDG``, ``LDS`` and ``MUFU`` instructions, and its instructions per
-candidate pair (the body holds ``LDG / (taps x frames)`` pairs, counting
-only 64-bit loads for IQ samples).  The
-counts are static: a pair outside the tap window branches past most of
-the body.
+a cubin for ``sm_90a``) is split into functions; in each instantiation of
+``das_forces_kernel``, ``das_hercules_kernel`` and ``das_rca_kernel`` the
+innermost loops that load RF samples (``LDG``) are found from the backward
+branches, and the one with the most loads -- the unrolled body of the pair
+loop -- is counted: its instructions, its ``LDG``, ``LDS`` and ``MUFU``
+instructions, and its instructions per candidate pair (the body holds
+``LDG / (taps x frames)`` pairs, counting only 64-bit loads for IQ
+samples; a HERCULES or RCA body of several voxels per thread holds one pair
+per voxel, so its shared part is divided among them).  The counts are
+static: a pair outside the mask or the tap window branches past most of the
+body.
 
 ``rotation_share`` compiles a source twice, once as it is and once with the
 IQ rotation's phase (``sincosf`` of the twin's argument) replaced by the
@@ -19,6 +21,9 @@ Run on a machine with the CUDA toolkit, from the repository root:
 
     python -m ogl_beamforming_tpu_torch.kernels.sass             # built library
     python -m ogl_beamforming_tpu_torch.kernels.sass --source F.cu [--rotation]
+
+``--source`` counts another ``das.cu`` (an older commit's, say) the same
+way.
 """
 
 from __future__ import annotations
@@ -34,7 +39,9 @@ from pathlib import Path
 
 from . import build
 
-_FORCES = re.compile(r"das_forces_kernelILi(\d)ELb([01])ELb([01])ELi(\d)E")
+FAMILIES = ("forces", "hercules", "rca")
+_DAS = re.compile(r"das_(forces|hercules|rca)_kernel"
+                  r"ILi(\d)ELb([01])ELb([01])ELi(\d)E")
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _BRA = re.compile(r"\bBRA(?:\.\S+)?\s+(?:`?\(?)(0x[0-9a-f]+|\.L_x_\d+)")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
@@ -174,15 +181,15 @@ def inner_loop(instrs, labels=None, min_loads=1, wide=False) -> dict | None:
             "CALL": sum(o.startswith("CALL") for o in body)}
 
 
-def forces_loops(text: str) -> dict:
-    """{"<mode> <real|iq>[ coh] fb<N>": counts} of every das_forces_kernel
-    instantiation in ``text``, with ``per_pair`` instructions."""
+def pair_loops(text: str, family: str = "forces") -> dict:
+    """{"<mode> <real|iq>[ coh] fb<N>": counts} of every instantiation of
+    ``das_<family>_kernel`` in ``text``, with ``per_pair`` instructions."""
     out = {}
     for name, (instrs, labels) in functions(text).items():
-        m = _FORCES.search(name)
-        if not m:
+        m = _DAS.search(name)
+        if not m or m.group(1) != family:
             continue
-        mode, iq, coh, fb = (int(g) for g in m.groups())
+        mode, iq, coh, fb = (int(g) for g in m.groups()[1:])
         # an IQ sample is a 64-bit load; sincosf's table loads are 32-bit
         counts = inner_loop(instrs, labels, TAPS[mode] * fb, bool(iq))
         if counts is None:
@@ -202,10 +209,10 @@ def rotation_share(source) -> dict:
     if _PHASE not in text:
         raise ValueError(f"{source}: the IQ phase line was not found")
     with tempfile.TemporaryDirectory() as tmp:
-        full = forces_loops(compile_sass(source, tmp)[0])
+        full = pair_loops(compile_sass(source, tmp)[0])
         stub = Path(tmp) / "das_no_phase.cu"
         stub.write_text(text.replace(_PHASE, "sn = 0.f; cs = 1.f;"))
-        bare = forces_loops(compile_sass(stub, tmp)[0])
+        bare = pair_loops(compile_sass(stub, tmp)[0])
     out = {}
     for key, c in full.items():
         if " iq" in key and key in bare:
@@ -229,9 +236,9 @@ def main() -> None:
         lib = build.build()
         text, log = dump(lib), lib.with_suffix(".log").read_text()
     usage = {m.group(0): v for k, v in ptxas_usage(log).items()
-             for m in [_FORCES.search(k)] if m}
-    result = {"forces_inner_loop": forces_loops(text),
-              "forces_registers_spills": usage}
+             for m in [_DAS.search(k)] if m}
+    result = {"inner_loop": {f: pair_loops(text, f) for f in FAMILIES},
+              "registers_spills": usage}
     if args.rotation:
         if not args.source:
             ap.error("--rotation needs --source")

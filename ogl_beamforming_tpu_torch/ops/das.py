@@ -403,13 +403,16 @@ def _rca_block(st: DasStatic, dyn, rf, world):
 # HERCULES / UHERCULES / HERO_PA (das.glsl:231-284)
 # ---------------------------------------------------------------------------
 
-def _hercules_block(st: DasStatic, dyn, rf, world):
+def _hercules_block(st: DasStatic, dyn, rf, world, transmits=None):
     """All channels x transmits of a HERCULES-family frame for the voxels
     ``world`` (V, 3) in world space (the JAX package's ``_hercules_block``):
     acquisition 0's transmit index, then per (channel, transmit) the 2D
     apodization over ``d2 = rx_d2 + tx_d2`` and the receive leg
     ``sqrt(z^2 + d2)``.  Receiving on columns, the receive elements run
-    along x and the transmits along y; otherwise the axes swap."""
+    along x and the transmits along y; otherwise the axes swap.
+    ``transmits``: the per-transmit ``(position, weight, rf acquisition)``
+    in another order than :func:`transmit_tables` (the kernel's sorted
+    table), which changes only the order of the transmit sum."""
     xdc = _apply_m4(dyn["xdc_transform"], world)
     tab = rca_tables(dyn)[0]
     rx_cols = _rx_columns(dyn)
@@ -422,7 +425,7 @@ def _hercules_block(st: DasStatic, dyn, rf, world):
     rx_lat = torch.where(rx_cols, xw, yw)
     rx_pitch = torch.where(rx_cols, dyn["xdc_element_pitch"][0],
                            dyn["xdc_element_pitch"][1])
-    tx_pos, first_w, row = transmit_tables(st, dyn)
+    tx_pos, first_w, row = transmits or transmit_tables(st, dyn)
     tx_dd = torch.where(rx_cols, yw, xw)[None, :] - tx_pos[:, None]
     tx_d2 = tx_dd * tx_dd                                  # (n_tx, V)
     fs_over_c = dyn["sampling_frequency"] / dyn["speed_of_sound"]

@@ -7,9 +7,11 @@ HERCULES-family frame also gets its per-transmit tables
 (``das.transmit_tables``: FORCES element x positions; READI Hadamard-row
 weights with rf acquisition ``e % A``; UFORCES and UHERCULES
 ``sparse_elements``, skipping acquisition 0; HERCULES row or column
-positions with the first transmit's ``1/sqrt(A)`` weight); an RCA or
-HERCULES frame gets the per-acquisition transmit table (``das.rca_tables``,
-of which HERCULES reads acquisition 0).  The tables stay on the device; a
+positions with the first transmit's ``1/sqrt(A)`` weight), a HERCULES
+frame's sorted by position (:func:`sorted_transmits`); an RCA or HERCULES
+frame gets the per-acquisition transmit table (``das.rca_tables``, of which
+HERCULES reads acquisition 0) and the run of voxels that share their
+lateral coordinates (:func:`lateral_run`).  The tables stay on the device; a
 FORCES-family frame also reads its voxel spacing and sampling rate on the
 host once, to choose the pass length of the kernel's index table
 (:func:`index_table_pass`).  :func:`launch_tables` gathers them;
@@ -47,6 +49,14 @@ SCATTERED_BYTES = 512
 """A warp's 32 neighbouring voxels whose samples may lie further apart than
 this (four 128-byte lines of one rf row) take the narrow pass, which leaves
 L1 more room for their gathers."""
+INTERVAL_WALK, FULL_WALK = 1, 0
+"""The HERCULES kernel's walk over a channel's transmits: the interval of
+those that can pass the mask, or the whole table (``tx_walk``)."""
+TWO_PI_SPLIT = tuple(float.fromhex(h) for h in (
+    "0x1.921fb6p+2", "-0x1.777a5cp-23", "-0x1.ee59dap-48"))
+"""2 pi as float32 hi, mid and lo parts, whose sum is 2 pi to about 1e-22:
+the exact reduction of the HERCULES and RCA kernels' phase argument
+(``csrc/das.cu`` ``kTwoPiHi``, ``kTwoPiMid``, ``kTwoPiLo``)."""
 
 
 def prepare(dyn: dict) -> torch.Tensor:
@@ -87,20 +97,70 @@ def index_table_pass(st: DasStatic, dyn: dict) -> int:
     return NARROW_PASS if spread > SCATTERED_BYTES else WIDE_PASS
 
 
+def _run_axis(st: DasStatic) -> int | None:
+    """The fastest axis of the output grid with more than one point: a
+    thread's neighbours lie along it."""
+    return next((k for k in (2, 1, 0) if st.output_points[k] > 1), None)
+
+
+def lateral_uniform(dyn: dict, axis: int) -> bool:
+    """Whether the XDC-space lateral coordinates (x and y) of a voxel are
+    bit-equal along grid ``axis``: each of their terms ``xdc[i, j] *
+    world_j`` has a zero transform coefficient or a world coordinate that
+    does not move along the axis (``voxel[j, axis] == 0``).  A product with
+    a zero coefficient is +-0 and adds nothing; a lateral coordinate of +-0
+    gives the same squares and absolute values."""
+    vt = dyn["voxel_transform"].detach().cpu()
+    xt = dyn["xdc_transform"].detach().cpu()
+    return all(bool(xt[i, j] == 0) or bool(vt[j, axis] == 0)
+               for i in (0, 1) for j in range(3))
+
+
+def lateral_run(st: DasStatic, dyn: dict) -> int:
+    """Consecutive voxels (C order) that share their XDC lateral
+    coordinates: the points along the grid's fastest axis with more than one
+    point where :func:`lateral_uniform` holds along it (HERCULES 3D: a
+    column of depths; a 2D plane-wave grid: a line of depths), else 1.  The
+    HERCULES and RCA kernels compute the lateral geometry once per thread's
+    voxels of a run."""
+    axis = _run_axis(st)
+    if axis is None or not lateral_uniform(dyn, axis):
+        return 1
+    return st.output_points[axis]
+
+
+def sorted_transmits(st: DasStatic, dyn: dict):
+    """A HERCULES-family frame's per-transmit ``(position, weight, rf
+    acquisition)`` (``das.transmit_tables``) in ascending position, ties in
+    table order: the kernel searches the positions for the transmits a
+    channel's mask can pass.  UHERCULES ``sparse_elements`` may come in any
+    order."""
+    tx_pos, weight, row = transmit_tables(st, dyn)
+    order = torch.argsort(tx_pos, stable=True)
+    return tx_pos[order], weight[order], row[order]
+
+
 def launch_tables(st: DasStatic, dyn: dict) -> dict:
     """The kernel's scalar vector and the tables of ``st``'s family, as
-    contiguous device tensors: ``rca`` (A, 8) for an RCA or HERCULES frame;
-    ``tx_pos``, ``tx_weight`` and ``tx_row`` for a FORCES- or
-    HERCULES-family frame; and for a FORCES-family frame ``tx_pass``, the
-    index table's pass (:func:`index_table_pass`)."""
+    contiguous device tensors: ``rca`` (A, 8) and ``run``
+    (:func:`lateral_run`) for an RCA or HERCULES frame; ``tx_pos``,
+    ``tx_weight`` and ``tx_row`` for a FORCES- or HERCULES-family frame
+    (HERCULES: in ascending position, with ``tx_walk``, the kernel's walk);
+    and for a FORCES-family frame ``tx_pass``, the index table's pass
+    (:func:`index_table_pass`)."""
     tables = {"scalars": prepare(dyn)}
     if st.family in ("rca", "hercules"):
         tables["rca"] = rca_tables(dyn)
+        tables["run"] = lateral_run(st, dyn)
     if st.family in ("forces", "hercules"):
-        tx_pos, weight, row = transmit_tables(st, dyn)
+        tx_pos, weight, row = (sorted_transmits(st, dyn)
+                               if st.family == "hercules"
+                               else transmit_tables(st, dyn))
         tables["tx_pos"] = tx_pos.to(torch.float32).contiguous()
         tables["tx_weight"] = weight.to(torch.float32).contiguous()
         tables["tx_row"] = row.to(torch.int32).contiguous()
+    if st.family == "hercules":
+        tables["tx_walk"] = INTERVAL_WALK
     if st.family == "forces":
         tables["tx_pass"] = index_table_pass(st, dyn)
     return tables
@@ -202,7 +262,8 @@ def das_cuda(rf: torch.Tensor, dyn: dict, st: DasStatic):
             None if inco is None else inco.data_ptr() + first * inco_frame,
             channels, st.channel_count, rf_rows, samples, n_tx,
             nx, ny, nz, gnx, gny, gnz, *flags, frames,
-            tables.get("tx_pass", WIDE_PASS), stream)
+            tables.get("tx_pass", WIDE_PASS), tables.get("run", 1),
+            tables.get("tx_walk", INTERVAL_WALK), stream)
         name = launch_name(st, frames)
         build.check(name, code)
         build.LAUNCHES[name] += 1

@@ -93,8 +93,12 @@ def decode_hadamard_cuda(rf: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 
 def decode_hadamard(rf: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """Decode ``rf`` (C, A, S) with ``h`` (A, A): the CUDA kernel for a CUDA
-    tensor, the plain twin for a CPU tensor."""
+    tensor, the plain twin for a CPU tensor.  float16 RF (Float16 wire
+    data) is decoded as its float32 values, exactly, as the JAX package's
+    decode casts it."""
     if rf.is_cuda:
+        if rf.dtype == torch.float16:
+            rf = rf.to(torch.float32)
         return decode_hadamard_cuda(rf, h)
     if rf.device.type != "cpu":
         raise ValueError(f"no decode for device {rf.device}")

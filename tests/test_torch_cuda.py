@@ -123,6 +123,46 @@ def test_decode_float_orders(dev, dtype, c, a, s):
     assert float((out - ref).abs().max() / ref.abs().max()) <= 1e-6
 
 
+def test_decode_float16_equals_the_float32_launch(dev):
+    """float16 RF (Float16 wire data) goes through the float32 kernel on
+    its exact float32 values: one launch, equal to the float32 launch."""
+    rng = np.random.default_rng(16)
+    x = rng.integers(-2048, 2048, (3, 64, 1000)).astype(np.float16)
+    rf = torch.from_numpy(x).to(dev)
+    h = decode.hadamard_matrix(64, device=dev)
+    before = build.LAUNCHES["decode_hadamard"]
+    out = decode.decode_hadamard(rf, h)
+    assert build.LAUNCHES["decode_hadamard"] == before + 1
+    assert out.dtype == torch.float32
+    assert torch.equal(out, decode.decode_hadamard(rf.to(torch.float32), h))
+
+
+def test_float16_pipeline_runs_on_the_card(dev):
+    """[Decode, DAS] on Float16 wire data through Beamformer on the card
+    against the CPU Beamformer (the twins)."""
+    p = Parameters(
+        sample_count=256, channel_count=8, acquisition_count=4,
+        sampling_frequency=20e6, demodulation_frequency=5e6,
+        speed_of_sound=1500.0, time_offset=1e-7, f_number=0.8,
+        acquisition_kind=AcquisitionKind.FORCES,
+        interpolation_mode=InterpolationMode.Cubic,
+        das_voxel_transform=das_transform_2d_xz([0, 1e-3],
+                                                [7 * PITCH, 8e-3]),
+        xdc_element_pitch=np.array([PITCH, PITCH], np.float32),
+        output_points=np.array([12, 16, 1, 0], np.int32))
+    raw = np.random.default_rng(17).integers(-1024, 1024, (8, 4 * 256)
+                                             ).astype(np.float16)
+    frames = []
+    for device in (dev, "cpu"):
+        bf = Beamformer(device=device)
+        bf.push_parameters(p)
+        bf.push_pipeline([ShaderKind.Decode, ShaderKind.DAS],
+                         DataKind.Float16)
+        frames.append(bf.push_data_with_compute(raw).to_numpy())
+    assert np.abs(frames[1]).max() > 0
+    assert nrmse(frames[1], frames[0]) <= 1e-4
+
+
 def test_decode_rejects_order_above_limit(dev):
     rf = torch.zeros((1, decode.MAX_ORDER + 1, 8), dtype=torch.int16,
                      device=dev)
@@ -317,6 +357,117 @@ def test_hercules_kernel_matches_twin(dev, kind, orient, interp, iq,
     out = das.das(rf, dyn, st)
     assert build.LAUNCHES["das_hercules"] == before + 1
     _compare(out, das.das_ref(rf, dyn, st))
+
+
+def _tilted(vt, degrees):
+    """``vt`` rotated about y: depth then moves x, so no two voxels of a
+    column share their lateral coordinates."""
+    a = np.radians(degrees)
+    rot = np.eye(4, dtype=np.float32)
+    rot[0, 0], rot[0, 2], rot[2, 0], rot[2, 2] = (np.cos(a), np.sin(a),
+                                                  -np.sin(a), np.cos(a))
+    return (rot @ vt).astype(np.float32)
+
+
+def _same_either_way(out, rf, dyn, st):
+    """The launch ``out`` equals, bit for bit, launches of the per-voxel
+    path (runs of one voxel) and, for HERCULES, of the full transmit walk:
+    the same triples, summed in the same order."""
+    tables = das_cuda.launch_tables(st, dyn)
+    variants = [dict(tables, run=1)]
+    if st.family == "hercules":
+        variants.append(dict(tables, tx_walk=das_cuda.FULL_WALK))
+    for t in variants:
+        other = das.das(rf, dict(dyn, launch=t), st)
+        for o, r in zip(out if isinstance(out, tuple) else (out,),
+                        other if isinstance(other, tuple) else (other,)):
+            assert torch.equal(o, r)
+
+
+@pytest.mark.parametrize("iq", [False, True])
+@pytest.mark.parametrize("tilted", [False, True])
+@pytest.mark.parametrize("nz", [1, 31, 33, 96])
+@pytest.mark.parametrize("kind", ["hercules", "uhercules"])
+def test_hercules_kernel_runs_along_depth(dev, kind, nz, tilted, iq):
+    """HERCULES and UHERCULES (sparse elements out of order) on 3 x 2 x nz
+    grids: columns of 1, 31, 33 (not a multiple of the voxels a thread
+    takes) and 96 depths, and the same grids tilted, which take the
+    per-voxel path; against the twin (1e-4), and equal to the per-voxel
+    path and the full walk."""
+    import dataclasses
+    p = _hercules_params(kind, "tx_rows", InterpolationMode.Linear, True)
+    p = dataclasses.replace(p, output_points=(3, 2, nz))
+    if kind == "uhercules":
+        p = dataclasses.replace(
+            p, sparse_elements=np.array([6, 0, 7, 2, 4], np.int16))
+    if tilted:
+        p = dataclasses.replace(p, voxel_transform=_tilted(p.voxel_transform,
+                                                           10.0))
+    rf = _rf(p, iq, dev)
+    dyn, st = das.make_dynamic(p, dev), das.make_static(p, iq=iq)
+    assert das_cuda.launch_tables(st, dyn)["run"] == (
+        1 if tilted or nz == 1 else nz)
+    out = das.das(rf, dyn, st)
+    _compare(out, das.das_ref(rf, dyn, st))
+    _same_either_way(out, rf, dyn, st)
+
+
+@pytest.mark.parametrize("tilted", [False, True])
+def test_rca_kernel_at_path_a_phase_range(dev, tilted):
+    """Flash cubic IQ with path A's sampling (4096 samples at 40 MHz,
+    f_d 7.8 MHz: phase arguments up to about 5e3 rad) and depth range on a
+    reduced grid, against the twin (1e-4) and equal to the per-voxel path;
+    tilted, the per-voxel path."""
+    p, _ = presets.plane_wave_2d(channel_count=64, output_points=(24, 160),
+                                 data_kind=DataKind.Float32Complex)
+    if tilted:
+        p.das_voxel_transform = _tilted(p.das_voxel_transform, 4.0)
+    gp = DasParams(
+        acquisition_kind=p.acquisition_kind, acquisition_count=1,
+        channel_count=p.channel_count, sample_count=p.sample_count,
+        sampling_frequency=p.sampling_frequency,
+        demodulation_frequency=p.demodulation_frequency,
+        speed_of_sound=p.speed_of_sound, time_offset=p.time_offset,
+        f_number=p.f_number, voxel_transform=p.das_voxel_transform,
+        xdc_transform=p.xdc_transform,
+        xdc_element_pitch=p.xdc_element_pitch, output_points=(24, 160, 1),
+        interpolation_mode=p.interpolation_mode,
+        transmit_receive_orientation=p.transmit_receive_orientation)
+    rng = np.random.default_rng(160)
+    shape = (p.channel_count, 1, p.sample_count)
+    rf = torch.complex(
+        torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)),
+        torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+    ).to(dev)
+    dyn, st = das.make_dynamic(gp, dev), das.make_static(gp, iq=True)
+    assert das_cuda.launch_tables(st, dyn)["run"] == (1 if tilted else 160)
+    out = das.das(rf, dyn, st)
+    _compare(out, das.das_ref(rf, dyn, st))
+    _same_either_way(out, rf, dyn, st)
+
+
+@pytest.mark.parametrize("coherency", [False, True])
+@pytest.mark.parametrize("iq", [False, True])
+@pytest.mark.parametrize("family", ["hercules", "flash"])
+def test_frame_batch_is_bit_equal_to_single_frames(dev, family, iq,
+                                                   coherency):
+    """A frame of a four-frame HERCULES or RCA launch equals, bit for bit,
+    a single-frame launch on it (a pair's geometry is shared, each frame
+    summed in the single-frame order)."""
+    import dataclasses
+    if family == "hercules":
+        p = _hercules_params("uhercules", "tx_columns",
+                             InterpolationMode.Cubic, coherency, focus=6e-3)
+    else:
+        p = _das_params("tpw", InterpolationMode.Cubic, coherency)
+    frames = torch.stack([_rf(p, iq, dev) * (1.0 + b) - b for b in range(4)])
+    dyn, st1 = das.make_dynamic(p, dev), das.make_static(p, iq=iq)
+    out = das.das(frames, dyn, dataclasses.replace(st1, frame_batch=4))
+    for b in range(4):
+        one = das.das(frames[b].contiguous(), dyn, st1)
+        pairs = zip(out, one) if coherency else [(out, one)]
+        for o, r in pairs:
+            assert torch.equal(o[b], r)
 
 
 @pytest.mark.parametrize("iq", [False, True])

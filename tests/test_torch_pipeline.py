@@ -3,7 +3,8 @@ against the JAX package's Beamformer (XLA), its Pallas kernels in
 interpret mode and the golden composition, on the same numpy-seeded raw
 frames:
 
-  * raw int16 -> Decode -> FORCES DAS (the Quickstart's path);
+  * raw int16 -> Decode -> FORCES DAS (the Quickstart's path), and the
+    same on Int16Complex and real Float16 wire data;
   * path A, the plane-wave headline reduced: Float32Complex wire -> RCA
     Flash DAS (NoDecode);
   * path B, the demodulate chain reduced: int16 -> Demodulate (Kaiser) ->
@@ -90,9 +91,12 @@ def _params(**kw) -> Parameters:
 
 
 def _raw(kind: DataKind):
+    """Integer-valued raw data of ``kind``'s wire type (float16 holds
+    these integers exactly)."""
     rng = np.random.default_rng(0x5EED + int(kind))
     return rng.integers(-1024, 1024, (C, A * S * kind.element_count)
-                        ).astype(np.int16)
+                        ).astype(np.float16 if kind == DataKind.Float16
+                                 else np.int16)
 
 
 def _golden(raw, kind, p):
@@ -145,7 +149,8 @@ def _jax_frame(p, kind, raw, shaders=(ShaderKind.Decode, ShaderKind.DAS),
     return _run(jbf, p, list(shaders), kind, raw, **kw).to_numpy()
 
 
-@pytest.mark.parametrize("kind", [DataKind.Int16, DataKind.Int16Complex])
+@pytest.mark.parametrize("kind", [DataKind.Int16, DataKind.Int16Complex,
+                                  DataKind.Float16])
 def test_beamformer_matches_jax(kind):
     p = _params()
     raw = _raw(kind)
