@@ -83,18 +83,25 @@ line:
   6. micro    the microbenchmark kernels K5-K11 (ogl_beamforming_tpu_torch.
               experiments, csrc/micro_*.cu), each against its plain version
               at its TPU file's shapes: the gather-and-add variants and the
-              int8 probes bit-equal (K11 ``full`` also equal to the exact
+              int8 probes bit-equal (K10 also equal to the exact product
+              and to torch._int_mm; K11 ``full`` also equal to the exact
               product H @ X / 16, at (16, 256) and at the Quickstart
-              decode's width (128, 128 x 4096)), the rest NRMSE 1e-6; then
-              each module's sweep, launch counts set to 0 just before and
-              read just after (K5, K6: every variant in shared and device
+              decode's width (128, 128 x 4096), and ``dot`` bit-equal
+              there), the rest NRMSE 1e-6; then each
+              module's sweep, launch counts set to 0 just before and read
+              just after (K5, K6: every variant in shared and device
               memory, by CUDA events and by its kernel time in a profiler
               trace; K7: the REPS slope of every variant in both; K8 and
               K9: the cubic-tap gather bundle and the one-hot product at B
-              = 8, 32, 128, K8 from the trace, K9 by the UNITS slope; K10
-              and K11 ``full`` timed).  Prints cycles per warp gather, ns per voxel-row-frame
-              and the SM clock, K10 beside torch._int_mm, and K11 ``full``
-              beside the decode kernel and the cuBLAS f32 product.
+              = 8, 32, 128, K8 from the trace, K9 by the UNITS slope).
+              Prints cycles per warp gather, ns per voxel-row-frame and the
+              SM clock; K10 beside torch._int_mm as a single call (with the
+              enqueue), 20 back to back and by the trace, and the host's
+              microseconds per call; K11 ``full`` and ``dot`` beside the
+              decode kernel (K2) and the cuBLAS f32 product, by events and
+              by the trace; the registers and static
+              SASS counts of the K10/K11 instantiations timed; the card's
+              name and power limit on each of those lines.
   7. trace    torch.profiler over one Quickstart frame and one path E batch
               through Beamformer (utils/profiling.device_time): kernel time
               by name and the device busy share of the window;
@@ -267,6 +274,7 @@ def phase_build() -> None:
     BUILD_FACTS["usage"] = usage
     text = sass.dump(build.library_path())
     BUILD_FACTS["loops"] = {f: sass.pair_loops(text, f) for f in sass.FAMILIES}
+    BUILD_FACTS["i8"] = sass.kernel_counts(text)
     decode = "; ".join(f"{m.group(1)} {regs} registers, {spill} B spilled"
                        for name, (regs, spill) in sorted(usage.items())
                        for m in [re.search(r"(decode_(?:i8|f32)_kernel(?:ILi\d)?)",
@@ -1485,39 +1493,78 @@ def phase_micro_onehot(dev) -> list[tuple[dict, int]]:
     return out
 
 
-def phase_micro_i8(dev) -> list[tuple[dict, int]]:
+def i8_facts(*keys) -> str:
+    """Registers, spills and static SASS counts (phase 2) of the int8
+    skeleton's instantiations ``keys`` (kernels/sass.py ``i8_key``)."""
+    from ogl_beamforming_tpu_torch.kernels import sass
+    regs = {sass.i8_key(k): v for k, v in BUILD_FACTS["usage"].items()
+            if sass.i8_key(k)}
+    facts = []
+    for key in keys:
+        check(key in regs and key in BUILD_FACTS["i8"],
+              f"no ptxas or SASS entry for {key}")
+        c = BUILD_FACTS["i8"][key]
+        facts.append(f"{key}: {regs[key][0]} registers, {regs[key][1]} B "
+                     f"spilled, {c['instructions']} SASS instructions ("
+                     + ", ".join(f"{op} {c[op]}" for op in sass.I8_OPS) + ")")
+    return "; ".join(facts)
+
+
+def phase_micro_i8(dev, smi_line) -> list[tuple[dict, int]]:
     """K10 and K11: exact against the plain versions and the exact product;
-    K10 timed beside torch._int_mm, K11 ``full`` at the decode's width
-    beside the decode kernel (K2) and the cuBLAS f32 product."""
-    from ogl_beamforming_tpu_torch.experiments import (launch_ms, probe_i8,
-                                                       probe_i8b)
+    K10 timed with the enqueue (single calls), back to back and by the
+    trace beside torch._int_mm, with the host's share of
+    a call; K11 ``full`` and ``dot`` at the decode's width beside the decode
+    kernel (K2) and the cuBLAS f32 product, the same ways; the registers and
+    static SASS of the instantiations timed."""
+    from ogl_beamforming_tpu_torch.experiments import (call_times, launch_ms,
+                                                       probe_i8, probe_i8b,
+                                                       traced_ms)
     from ogl_beamforming_tpu_torch.ops import decode
     out = []
     x = probe_i8.make_inputs(dev)
-    exact = (x["a"].to(torch.float64) @ x["b"].to(torch.float64)).cpu()
+    a8, b8 = x["a"], x["b"]
+    exact = (a8.to(torch.float64) @ b8.to(torch.float64)).cpu()
     for name, od in probe_i8.BODIES.items():
-        k = probe_i8.kernel2(x["a"], x["b"], od)
-        micro_compare(k, probe_i8.kernel2_ref(x["a"], x["b"], od), True,
-                      f"K10 {name}")
+        k = probe_i8.kernel2(a8, b8, od)
+        micro_compare(k, probe_i8.kernel2_ref(a8, b8, od), True, f"K10 {name}")
         check(torch.equal(k.cpu().to(torch.float64), exact),
               f"K10 {name} != the exact product")
     n = launches_of("micro_i8", lambda: [
-        probe_i8.kernel2(x["a"], x["b"], od)
-        for od in probe_i8.BODIES.values()])
-    ms, iqr = kernel_ms(lambda: probe_i8.kernel2(x["a"], x["b"]))
-    plain = median_ms(lambda: probe_i8.kernel2_ref(x["a"], x["b"]), RUNS)
-    lib = median_ms(lambda: torch._int_mm(x["a"], x["b"]))
-    check(torch.equal(torch._int_mm(x["a"], x["b"]),
-                      probe_i8.kernel2(x["a"], x["b"])),
-          "K10 != torch._int_mm")
-    print(f"[micro] K10 probe_i8 int8 (128, 128) @ (128, 256): int32 and "
-          f"float32 bodies equal to the exact product; kernel {ms * 1e3:.2f}"
-          f" us (IQR {iqr * 1e3:.2f}), plain {plain * 1e3:.2f} us, "
-          f"torch._int_mm {lib * 1e3:.2f} us")
-    out.append((kernel_row(
+        probe_i8.kernel2(a8, b8, od) for od in probe_i8.BODIES.values()])
+    k10 = lambda: probe_i8.kernel2(a8, b8)  # noqa: E731
+    int_mm = lambda: torch._int_mm(a8, b8)  # noqa: E731
+    check(torch.equal(int_mm(), k10()), "K10 != torch._int_mm")
+    # single calls of the two in turns: with the enqueue, the host's time
+    # is most of either, and the host drifts
+    single = call_times({"K10": k10, "_int_mm": int_mm}, 2 * TIMED_RUNS + 1)
+    q1, ms, q3 = statistics.quantiles(single["K10"], n=4)
+    iqr = q3 - q1
+    lib = statistics.median(single["_int_mm"])
+    plain = median_ms(lambda: probe_i8.kernel2_ref(a8, b8), RUNS)
+    times = {label: (launch_ms(fn), traced_ms(fn))
+             for label, fn in (("K10", k10), ("_int_mm", int_mm))}
+    host = probe_i8.host_breakdown(x)
+    print(f"[micro] K10 probe_i8 int8 (128, 128) @ (128, 256), {smi_line}: "
+          f"int32 and float32 bodies equal to the exact product; single "
+          f"call {ms * 1e3:.2f} us (IQR {iqr * 1e3:.2f}; in turns with "
+          f"torch._int_mm), 20 back to back "
+          f"{times['K10'][0] * 1e3:.2f} us, trace {times['K10'][1] * 1e3:.2f}"
+          f" us; torch._int_mm single call {lib * 1e3:.2f} us, back to back "
+          f"{times['_int_mm'][0] * 1e3:.2f} us, trace "
+          f"{times['_int_mm'][1] * 1e3:.2f} us; plain {plain * 1e3:.2f} us")
+    print(f"[micro] K10 host us per call, enqueue only ({smi_line}): "
+          + "; ".join(f"{k} {v:.2f}" for k, v in host.items()))
+    print(f"[micro] K10 build ({smi_line}): " + i8_facts(
+        "i8_mma_kernel k4 b2 wn1 wm4 rows64", "i8_mma_kernel k4 b3 wn1 wm4 rows64"))
+    row = kernel_row(
         "micro_i8_k10", "micro_i8.cu", "experiments/probe_i8.py:26", 0.0, ms,
         plain, 128 * 128 + 128 * 256 + 128 * 256 * 4,
-        [(2.0 * 128 * 128 * 256, PEAK_INT8_PER_S)], lib, iqr=iqr), n))
+        [(2.0 * 128 * 128 * 256, PEAK_INT8_PER_S)], lib, iqr=iqr)
+    row.update(launch_ms=times["K10"][0], trace_ms=times["K10"][1],
+               library_launch_ms=times["_int_mm"][0],
+               library_trace_ms=times["_int_mm"][1])
+    out.append((row, n))
 
     x = probe_i8b.make_inputs(dev)
     for body in probe_i8b.BODIES:
@@ -1536,27 +1583,45 @@ def phase_micro_i8(dev) -> list[tuple[dict, int]]:
     exact = torch.matmul(w["h"].to(torch.float64), w["x"].to(torch.float64))
     check(torch.equal(full.to(torch.float64), exact / 16.0),
           "K11 full at the decode width != H @ X / 16")
-    del exact
-    n = launches_of("micro_i8", lambda: launch_ms(
-        lambda: probe_i8b.k("full", w["h"], w["x"]), iters=MICRO_ITERS))
-    ms, iqr = kernel_ms(lambda: probe_i8b.k("full", w["h"], w["x"]))
+    del exact, full
+    micro_compare(probe_i8b.k("dot", w["h"], w["x"]),
+                  probe_i8b.k_ref("dot", w["h"], w["x"]), True,
+                  "K11 dot at the decode width")
+    full_fn = lambda: probe_i8b.k("full", w["h"], w["x"])  # noqa: E731
+    dot_fn = lambda: probe_i8b.k("dot", w["h"], w["x"])  # noqa: E731
+    n = launches_of("micro_i8", lambda: launch_ms(full_fn, iters=MICRO_ITERS))
+    ms, iqr = kernel_ms(full_fn)
+    dot_ms, dot_iqr = kernel_ms(dot_fn)
     plain = median_ms(lambda: probe_i8b.k_ref("full", w["h"], w["x"]), RUNS)
     h32, x32 = w["h"].to(torch.float32), w["x"].to(torch.float32)
-    lib = median_ms(lambda: torch.matmul(h32, x32))
-    del x32
+    cublas = lambda: torch.matmul(h32, x32)  # noqa: E731
+    lib = median_ms(cublas)
     rf = w["x"].reshape(a, 128, bs // 128).transpose(0, 1).contiguous()
     hd = decode.hadamard_matrix(a, device=dev)
-    k2_ms, k2_iqr = kernel_ms(lambda: decode.decode_hadamard_cuda(rf, hd))
-    print(f"[micro] K11 probe_i8b: five bodies bit-equal at (16, 256), full "
-          f"= H @ X / 16 exactly; full at the decode width ({a}, {bs}): "
-          f"bit-equal to the plain version and the exact product; kernel "
-          f"{ms:.3f} ms (IQR {iqr:.3f}), plain {plain:.3f} ms, cuBLAS f32 "
-          f"matmul {lib:.3f} ms, decode kernel K2 at (128, 128, 4096) "
-          f"{k2_ms:.3f} ms (IQR {k2_iqr:.3f})")
-    out.append((kernel_row(
+    k2 = lambda: decode.decode_hadamard_cuda(rf, hd)  # noqa: E731
+    k2_ms, k2_iqr = kernel_ms(k2)
+    traces = {label: traced_ms(fn) for label, fn in (
+        ("full", full_fn), ("dot", dot_fn), ("cuBLAS", cublas), ("K2", k2))}
+    del x32
+    print(f"[micro] K11 probe_i8b ({smi_line}): five bodies bit-equal at "
+          f"(16, 256), full = H @ X / 16 exactly; at the decode width ({a}, "
+          f"{bs}) full bit-equal to the plain version and the exact product, "
+          f"dot to its plain version; full {ms:.3f} ms (IQR {iqr:.3f}), "
+          f"trace {traces['full']:.3f}; dot {dot_ms:.3f} ms (IQR "
+          f"{dot_iqr:.3f}), trace {traces['dot']:.3f}; plain {plain:.3f} ms;"
+          f" cuBLAS f32 matmul {lib:.3f} ms, trace {traces['cuBLAS']:.3f}; "
+          f"decode kernel K2 at (128, 128, 4096) {k2_ms:.3f} ms (IQR "
+          f"{k2_iqr:.3f}), trace {traces['K2']:.3f}")
+    print(f"[micro] K11 build ({smi_line}): " + i8_facts(
+        "i8_mma_kernel k4 b0 wn8 wm1 rows0", "i8_mma_kernel k4 b1 wn8 wm1 rows0",
+        "decode_i8_kernel k4"))
+    row = kernel_row(
         "micro_i8_k11", "micro_i8.cu", "experiments/probe_i8b.py:15", 0.0,
         ms, plain, a * a + a * bs * 2 + a * bs * 4,
-        [(2.0 * 2 * a * a * bs, PEAK_INT8_PER_S)], lib, iqr=iqr), n))
+        [(2.0 * 2 * a * a * bs, PEAK_INT8_PER_S)], lib, iqr=iqr)
+    row.update(trace_ms=traces["full"], library_trace_ms=traces["cuBLAS"],
+               dot_ms=dot_ms, dot_trace_ms=traces["dot"])
+    out.append((row, n))
     return out
 
 
@@ -1582,7 +1647,7 @@ def phase_micro(dev, smi_line) -> list[dict]:
                           loads.items(), key=lambda kv: str(kv[0]))))
     clock = sm_clock_mhz()
     rows = (phase_micro_gather(dev) + phase_micro_onehot(dev)
-            + phase_micro_i8(dev))
+            + phase_micro_i8(dev, smi_line))
     for row, n in rows:
         row["launches"] = n
     print(f"[micro] {smi_line}; SM clock {clock:g} MHz before the sweeps "

@@ -15,34 +15,26 @@
 // device memory, and everything in it serves the memory path.
 //
 // decode_i8_kernel (int16 input), the int8 two-pass form of the JAX
-// package's _decode_kernel_i8:
+// package's _decode_kernel_i8, is the int8 tensor-core skeleton of
+// i8_mma.cuh (shared with the K10/K11 probes of micro_i8.cu) with its
+// decode body:
 //   * x = 256 hi + lo + 128 with hi = x >> 8 and lo = (x & 255) - 128, both
 //     int8; H (+-1) is int8; two mma.sync.m16n8k32 s8 products per tile and
 //     acc = 256 P_hi + P_lo + 128 rowsum(H) in int32, exact for the whole
 //     int16 range (|acc| <= 2^23); out = float(acc) * (1/T) with the f32
 //     constant of ops/decode.py::_inv_order, bit for bit the plain twin.
 //   * Persistent blocks (as many as fit on the card) stage H once each, as
-//     int8 zero-padded to a multiple of 32 in both dimensions (the MMA's K;
-//     the zero columns make the padded rows of the RF tile contribute
-//     nothing, whatever those rows hold), then walk over (channel,
-//     64-sample) tiles.  RF tiles come in by 16-byte cp.async into a ring of
-//     three stages, the next two tiles' copies in flight while this one
-//     computes.
+//     int8 zero-padded to a multiple of 32, then walk over (channel,
+//     64-sample) tiles that come in by 16-byte cp.async into a ring of three
+//     stages.
 //   * The transpose: the product contracts over A, the rows of the tile,
-//     while samples are contiguous, and the MMA's B operand wants four
-//     K-consecutive bytes per register.  ldmatrix.trans on the int16 tile
-//     gives each thread two K-consecutive int16 of one sample column per
-//     register; two __byte_perm gather the high and the low bytes of two such
-//     registers into one B register each.  The K order that this produces
-//     within a 32-deep step (K rows 2t, 2t+1, 2t+8, 2t+9 in thread t's
-//     register) is applied to H's columns once, when H is staged.  This was
-//     taken over a transposing write into shared memory because it needs no
-//     second pass over the tile and no second buffer: one ldmatrix.x4 and
-//     four byte permutes give a warp a 32 x 8 B fragment of both halves.
-//   * Output: each 16 x 8 int32 accumulator tile is turned into floats, and
-//     one shuffle between neighbouring threads gives each thread four
-//     consecutive samples of one row, written as one 16-byte streaming
-//     store.
+//     while samples are contiguous.  ldmatrix.trans and two __byte_perm
+//     give the B fragments of both halves, and the K order this produces is
+//     applied to H's columns when H is staged.  This was taken over a
+//     transposing write into shared memory because it needs no second pass
+//     over the tile and no second buffer.
+//   * Output: one shuffle between neighbouring threads gives each thread
+//     four consecutive samples of one row, a 16-byte streaming store.
 //
 // decode_f32_kernel (float32 input, complex frames interleaved re|im along S
 // by the wrapper): float32 has no exact int8 split, but it has an exact
@@ -66,187 +58,31 @@
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <type_traits>
+
+#include "i8_mma.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;          // 8 warps a block
 constexpr int kTileS = 64;             // samples per tile, 8 per warp
 constexpr int kRowBytes = kTileS * 2 + 16;  // padded 16-bit tile row
-constexpr int kStages = 3;             // int16 kernel: RF tiles in the ring
 constexpr int kMaxOrder = 256;
 
 constexpr int kF32Rows = 128;          // float32 kernel: output rows a block owns
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most N of this thread's copy groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned r[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// d += a (16 x 32, row) * b (32 x 8, col), int8 in, int32 accumulate.
-__device__ __forceinline__ void mma_s8(int d[4], const unsigned a[4],
-                                       unsigned b0, unsigned b1) {
-  asm(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The column of H that sits at logical K position `l` of a 32-deep step:
-// thread t's B register 0 holds tile rows 2t, 2t+1, 2t+8, 2t+9 (ldmatrix
-// matrices 0 and 1), register 1 the same plus 16 (matrices 2 and 3), while
-// the MMA reads them as K = 4t .. 4t+3 (and + 16).
-__device__ __forceinline__ int k_column(int l) {
-  const int half = l / 16, q = l % 16, t = q / 4, i = q % 4;
-  return half * 16 + 8 * (i / 2) + 2 * t + (i % 2);
-}
+// The int16 kernel: the int8 skeleton (i8_mma.cuh) with the decode's body,
+// 8 warps across a 64-sample tile, all of H's rows in every block.
+template <int KSTEPS>
+using DecodeI8 = I8Tiles<KSTEPS, kI8Decode, 8, 1, 0>;
 
 template <int KSTEPS>
 __global__ void __launch_bounds__(kThreads)
 decode_i8_kernel(const int16_t* __restrict__ rf, const int8_t* __restrict__ h,
-                 float* __restrict__ out, int C, int A, int S, float scale,
+                 void* __restrict__ out, int C, int A, int S, float scale,
                  bool vec_in, bool vec_out) {
-  constexpr int kPad = KSTEPS * 32;            // A padded to the MMA's K
-  constexpr int kHRow = kPad + 16;             // padded H row, bytes
-  constexpr int kStage = kPad * kRowBytes;
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* s_x = smem;          // kStages stages of kPad x kTileS int16
-  int8_t* s_h = reinterpret_cast<int8_t*>(smem + kStages * kStage);  // kPad x kHRow
-  int* s_rs = reinterpret_cast<int*>(smem + kStages * kStage + kPad * kHRow);
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gid = lane / 4, tig = lane % 4;
-  const int tiles = (S + kTileS - 1) / kTileS;
-  const int units = C * tiles;
-  if ((int)blockIdx.x >= units) return;
-
-  // Bring RF tile `u` (channel u / tiles, samples (u % tiles) * kTileS ..)
-  // into stage `st`: rows j < A, 8 samples (16 bytes) a copy.  Rows A .. kPad
-  // are never written: H's zero columns cancel whatever they hold.
-  auto load = [&](int u, int st) {
-    const int c = u / tiles, s0 = (u % tiles) * kTileS;
-    unsigned char* dst = s_x + st * kStage;
-    for (int i = tid; i < A * (kTileS / 8); i += kThreads) {
-      const int j = i / (kTileS / 8), s = s0 + 8 * (i % (kTileS / 8));
-      const int16_t* src = rf + ((size_t)c * A + j) * S + s;
-      int16_t* d = reinterpret_cast<int16_t*>(dst + j * kRowBytes + (s - s0) * 2);
-      if (vec_in && s + 8 <= S) {
-        cp_async16(d, src);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) d[e] = s + e < S ? src[e] : int16_t(0);
-      }
-    }
-  };
-
-  // the first kStages - 1 tiles, one copy group each
-  for (int i = 0; i < kStages - 1; ++i) {
-    const int u = blockIdx.x + i * gridDim.x;
-    if (u < units) load(u, i);
-    cp_async_commit();
-  }
-
-  // H, once per block: logical column l of step k holds H[:, 32 k +
-  // k_column(l)], zero outside A x A; and 128 rowsum(H) per row.
-  for (int i = tid; i < kPad * kPad; i += kThreads) {
-    const int t = i / kPad, l = i % kPad;
-    const int j = (l / 32) * 32 + k_column(l % 32);
-    s_h[t * kHRow + l] = (t < A && j < A) ? h[t * A + j] : int8_t(0);
-  }
-  for (int t = tid; t < kPad; t += kThreads) {
-    int sum = 0;
-    if (t < A)
-      for (int j = 0; j < A; ++j) sum += h[t * A + j];
-    s_rs[t] = 128 * sum;
-  }
-
-  const int m_tiles = (A + 15) / 16;
-  int st = 0;
-  for (int u = blockIdx.x; u < units; u += gridDim.x) {
-    const int ahead = u + (kStages - 1) * gridDim.x;
-    if (ahead < units) load(ahead, (st + kStages - 1) % kStages);
-    cp_async_commit();
-    cp_async_wait<kStages - 1>();   // tile u has landed
-    __syncthreads();
-
-    // B fragments of this warp's 8 samples over all of K: hi and lo halves
-    const unsigned char* tile = s_x + st * kStage;
-    unsigned bhi[KSTEPS][2], blo[KSTEPS][2];
-#pragma unroll
-    for (int k = 0; k < KSTEPS; ++k) {
-      unsigned r[4];
-      ldmatrix_x4_trans(r, tile + (32 * k + lane) * kRowBytes + warp * 16);
-      bhi[k][0] = __byte_perm(r[0], r[1], 0x7531);
-      bhi[k][1] = __byte_perm(r[2], r[3], 0x7531);
-      blo[k][0] = __byte_perm(r[0], r[1], 0x6420) ^ 0x80808080u;
-      blo[k][1] = __byte_perm(r[2], r[3], 0x6420) ^ 0x80808080u;
-    }
-
-    const int c = u / tiles;
-    const int s = (u % tiles) * kTileS + warp * 8 + 4 * (tig / 2);
-    const bool odd = tig & 1;
-    for (int mt = 0; mt < m_tiles; ++mt) {
-      int hi[4] = {0, 0, 0, 0}, lo[4] = {0, 0, 0, 0};
-      const int8_t* hr = s_h + (mt * 16 + gid) * kHRow + 4 * tig;
-#pragma unroll
-      for (int k = 0; k < KSTEPS; ++k) {
-        unsigned a[4];
-        a[0] = *reinterpret_cast<const unsigned*>(hr + 32 * k);
-        a[1] = *reinterpret_cast<const unsigned*>(hr + 8 * kHRow + 32 * k);
-        a[2] = *reinterpret_cast<const unsigned*>(hr + 32 * k + 16);
-        a[3] = *reinterpret_cast<const unsigned*>(hr + 8 * kHRow + 32 * k + 16);
-        mma_s8(hi, a, bhi[k][0], bhi[k][1]);
-        mma_s8(lo, a, blo[k][0], blo[k][1]);
-      }
-      // thread (gid, tig) holds rows gid, gid + 8 at samples 2 tig, 2 tig + 1
-      const int r0 = mt * 16 + gid;
-      float f[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        f[i] = static_cast<float>(256 * hi[i] + lo[i] + s_rs[r0 + 8 * (i / 2)]) * scale;
-      // even threads take row gid, odd ones row gid + 8, four samples each
-      const float g0 = __shfl_xor_sync(0xffffffffu, odd ? f[0] : f[2], 1);
-      const float g1 = __shfl_xor_sync(0xffffffffu, odd ? f[1] : f[3], 1);
-      const float4 v = odd ? make_float4(g0, g1, f[2], f[3])
-                           : make_float4(f[0], f[1], g0, g1);
-      const int row = r0 + (odd ? 8 : 0);
-      if (row < A) {
-        float* dst = out + ((size_t)c * A + row) * S + s;
-        if (vec_out && s + 4 <= S) {
-          __stcs(reinterpret_cast<float4*>(dst), v);
-        } else {
-          const float e[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            if (s + i < S) dst[i] = e[i];
-        }
-      }
-    }
-    __syncthreads();   // stage st is free for the copy kStages - 1 tiles on
-    st = (st + 1) % kStages;
-  }
+  static_assert(DecodeI8<KSTEPS>::kThreads == kThreads &&
+                DecodeI8<KSTEPS>::kCols == kTileS, "the decode's tile");
+  i8_tiles<KSTEPS, kI8Decode, 8, 1, 0>(rf, h, out, C, A, S, scale, vec_in, vec_out);
 }
 
 // d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate.
@@ -411,44 +247,12 @@ decode_f32_kernel(const float* __restrict__ rf, const int8_t* __restrict__ h,
   }
 }
 
-// As many blocks of `kernel` as the card holds at once, at most `want`.
-template <typename Kernel>
-int persistent_grid(Kernel kernel, int threads, size_t smem, long long want,
-                    int multiple, int* grid) {
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  long long g = (long long)sms * per_sm;
-  if (g > want) g = want;
-  g -= g % multiple;
-  *grid = (int)(g < multiple ? multiple : g);
-  return 0;
-}
-
 template <int KSTEPS>
 int launch_i8(const int16_t* rf, const int8_t* h, float* out, int C, int A,
               int S, float scale, cudaStream_t stream) {
-  constexpr int kPad = KSTEPS * 32;
-  const size_t smem = (size_t)kStages * kPad * kRowBytes +
-                      (size_t)kPad * (kPad + 16) + (size_t)kPad * sizeof(int);
-  const long long units = (long long)C * ((S + kTileS - 1) / kTileS);
-  int grid = 0;
-  const int err = persistent_grid(decode_i8_kernel<KSTEPS>, kThreads, smem, units, 1,
-                                  &grid);
-  if (err) return err;
-  const bool vec_in = S % 8 == 0 && reinterpret_cast<uintptr_t>(rf) % 16 == 0;
-  const bool vec_out = S % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  decode_i8_kernel<KSTEPS><<<grid, kThreads, smem, stream>>>(
-      rf, h, out, C, A, S, scale, vec_in, vec_out);
-  return (int)cudaGetLastError();
+  static std::atomic<int> cache[kMaxDevices];
+  return launch_i8_tiles<DecodeI8<KSTEPS>>(decode_i8_kernel<KSTEPS>, cache, rf, h, out,
+                                           C, A, S, scale, stream);
 }
 
 template <int KSTEPS>
@@ -459,8 +263,9 @@ int launch_f32(const float* rf, const int8_t* h, float* out, int C, int A, int S
   const size_t smem = 3 * (size_t)kPad * kRowBytes + (size_t)kSlice * (2 * kPad + 16);
   const int slices = (A + kSlice - 1) / kSlice;
   const long long units = (long long)C * ((S + kTileS - 1) / kTileS);
+  static std::atomic<int> cache[kMaxDevices];
   int grid = 0;
-  const int err = persistent_grid(decode_f32_kernel<KSTEPS>, kThreads, smem,
+  const int err = persistent_grid(decode_f32_kernel<KSTEPS>, cache, kThreads, smem,
                                   units * slices, slices, &grid);
   if (err) return err;
   const bool vec_in = S % 4 == 0 && reinterpret_cast<uintptr_t>(rf) % 16 == 0;
@@ -474,23 +279,6 @@ bool valid(int C, int A, int S) {
   return C > 0 && A > 0 && A <= kMaxOrder && S > 0;
 }
 
-// f(std::integral_constant<int, K>()) for K = ceil(A / 32), the 32-deep
-// steps of an order-A contraction (A <= 256).
-template <typename F>
-int by_steps(int A, F f) {
-  switch ((A + 31) / 32) {
-    case 1: return f(std::integral_constant<int, 1>());
-    case 2: return f(std::integral_constant<int, 2>());
-    case 3: return f(std::integral_constant<int, 3>());
-    case 4: return f(std::integral_constant<int, 4>());
-    case 5: return f(std::integral_constant<int, 5>());
-    case 6: return f(std::integral_constant<int, 6>());
-    case 7: return f(std::integral_constant<int, 7>());
-    case 8: return f(std::integral_constant<int, 8>());
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // int16 rf (C, A, S), int8 h (A, A) with entries +-1, float32 out (C, A, S);
@@ -498,7 +286,7 @@ int by_steps(int A, F f) {
 extern "C" int decode_int16(const void* rf, const void* h, void* out, int C,
                             int A, int S, float scale, void* stream) {
   if (!valid(C, A, S)) return (int)cudaErrorInvalidValue;
-  return by_steps(A, [&](auto k) {
+  return by_steps<8>(A, [&](auto k) {
     return launch_i8<decltype(k)::value>(
         static_cast<const int16_t*>(rf), static_cast<const int8_t*>(h),
         static_cast<float*>(out), C, A, S, scale, static_cast<cudaStream_t>(stream));
@@ -510,7 +298,7 @@ extern "C" int decode_int16(const void* rf, const void* h, void* out, int C,
 extern "C" int decode_f32(const void* rf, const void* h, void* out, int C,
                           int A, int S, float scale, void* stream) {
   if (!valid(C, A, S)) return (int)cudaErrorInvalidValue;
-  return by_steps(A, [&](auto k) {
+  return by_steps<8>(A, [&](auto k) {
     return launch_f32<decltype(k)::value>(
         static_cast<const float*>(rf), static_cast<const int8_t*>(h),
         static_cast<float*>(out), C, A, S, scale, static_cast<cudaStream_t>(stream));

@@ -23,7 +23,9 @@ from __future__ import annotations
 import os
 import re
 import shutil
+import statistics
 import subprocess
+import time
 from pathlib import Path
 
 import numpy as np
@@ -64,6 +66,53 @@ def traced_ms(fn, iters: int = 20) -> float:
         return out
 
     return device_time(run).module_seconds * 1e3 / iters
+
+
+def call_times(fns: dict, runs: int = 21) -> dict:
+    """{name: [ms]} of ``runs`` single calls of each of ``fns`` ({name:
+    fn}), each call between two CUDA events and synchronised, the functions
+    in turns so that the host's drift falls on all alike; one warm-up call
+    each first.  A single call's time holds its enqueue."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    for _ in range(runs):
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return times
+
+
+def three_ways_ms(fn, iters: int = 20) -> dict:
+    """``fn`` timed by the median of single calls (:func:`call_times`, with
+    the enqueue), per call of ``iters`` back to back (:func:`launch_ms`) and
+    by its kernels' time in a profiler trace (:func:`traced_ms`), in ms."""
+    return {"call_ms": statistics.median(call_times({0: fn})[0]),
+            "launch_ms": launch_ms(fn, iters),
+            "trace_ms": traced_ms(fn, iters)}
+
+
+def host_us(fn, calls: int = 200, repeats: int = 5) -> float:
+    """Host microseconds per call of ``fn`` over ``calls`` calls that are
+    not waited for, best of ``repeats``: what the enqueue costs the host
+    (few enough calls that the launch queue does not fill and hold the host
+    back)."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return best / calls * 1e6
 
 
 def slope(xs, ys) -> float:

@@ -12,12 +12,15 @@ lo = (X & 255) - 128:
   full     (256 H @ hi + H @ lo + 128 rowsum(H)) / 16, the body of the JAX
            package's int8 decode kernel (``ops/decode.py::_decode_kernel_i8``)
 
-``csrc/micro_i8.cu`` runs ``dot`` and ``full`` on the int8 tensor cores
-(WMMA) and the other three elementwise.  All five are exact: each must
-equal its plain version bit for bit, and ``full`` the exact int64 product
-H @ X / 16.  ``main`` checks them at the probe's shape (a = 16, bs = 256),
-where a launch is a few blocks, and times ``full`` at the Quickstart
-decode's width (a = 128, bs = 128 x 4096).  ``full`` is this probe's
+``csrc/micro_i8.cu`` runs ``dot`` and ``full`` on the int8 tensor-core
+skeleton of the decode kernel (``csrc/i8_mma.cuh``, ``mma.sync``) over X as
+one channel of width bs, and the other three elementwise.  All five are
+exact: each must equal its plain version bit for bit, and ``full`` the exact
+int64 product H @ X / 16.  ``main`` checks them at the probe's shape (a =
+16, bs = 256), where a launch is a few blocks, and checks and times
+``full`` and ``dot`` at the Quickstart decode's width (a = 128, bs = 128 x
+4096) beside the cuBLAS float32 product, with the enqueue, back to back
+and by the trace.  ``full`` is this probe's
 function only: the decode (``ops/decode.py``) does not call it.  Run on the
 card:
 
@@ -31,7 +34,8 @@ import json
 import numpy as np
 import torch
 
-from . import card, check_cuda, launch_ms, require_gpu
+from ..kernels import build
+from . import card, require_gpu, three_ways_ms
 from .probe_i8 import int8_matmul_ref, launch_i8_mma
 
 A, BS = 16, 256
@@ -91,24 +95,21 @@ def k(body: str, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         if h.device.type != "cpu":
             raise ValueError(f"no kernel for device {h.device}")
         return k_ref(body, h, x)
-    if x.dtype != torch.int16 or x.dim() != 2:
-        raise ValueError(f"x must be int16 (a, bs), got {x.dtype} "
-                         f"{tuple(x.shape)}")
     if body in _MMA_BODY:
         return launch_i8_mma(_MMA_BODY[body], h, x, torch.float32,
                              FULL_SCALE if body == "full" else 1.0)
-    from ..kernels import build
-    check_cuda(h, x)
-    a, bs = x.shape
-    if h.dtype != torch.int8 or h.shape != (a, a) or not h.is_contiguous() \
-            or not x.is_contiguous():
-        raise ValueError(f"h must be contiguous int8 ({a}, {a}) and x "
-                         f"contiguous, got {h.dtype} {tuple(h.shape)}")
+    a, bs = x.shape if x.dim() == 2 else (0, 0)
+    if not (x.device == h.device and x.dtype == torch.int16 and bs > 0
+            and h.dtype == torch.int8 and h.shape == (a, a)
+            and h.is_contiguous() and x.is_contiguous()):
+        raise ValueError(f"k({body!r}) needs contiguous int8 h (a, a) and "
+                         f"int16 x (a, bs) on one CUDA device, got h "
+                         f"{h.dtype} {tuple(h.shape)} on {h.device}, x "
+                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
     out = torch.empty((a, bs), dtype=torch.float32, device=x.device)
-    code = build.library().micro_i8_elementwise(
+    build.check("micro_i8_elementwise", build.library().micro_i8_elementwise(
         _ELEMENTWISE[body], h.data_ptr(), x.data_ptr(), out.data_ptr(), a,
-        bs, torch.cuda.current_stream(x.device).cuda_stream)
-    build.check("micro_i8_elementwise", code)
+        bs, torch._C._cuda_getCurrentRawStream(x.device.index)))
     build.LAUNCHES["micro_i8"] += 1
     return out
 
@@ -133,15 +134,18 @@ def main(device="cuda") -> dict:
                        - full_exact(x["h"], x["x"])).max())
     print(json.dumps({"full_max_err": err}), flush=True)
     wide = make_inputs(dev, DECODE_A, DECODE_BS)
-    ms = launch_ms(lambda: k("full", wide["h"], wide["x"]), iters=ITERS)
     x32 = wide["x"].to(torch.float32)
     h32 = wide["h"].to(torch.float32)
-    lib = launch_ms(lambda: torch.matmul(h32, x32), iters=ITERS)
-    results["full_decode_width"] = {
-        "shape": [DECODE_A, DECODE_BS], "us": ms * 1e3,
-        "cublas_f32_matmul_us": lib * 1e3}
-    print(json.dumps({"full_decode_width": results["full_decode_width"]}),
-          flush=True)
+    results["decode_width"] = {"shape": [DECODE_A, DECODE_BS]}
+    for body in ("full", "dot"):
+        equal = torch.equal(k(body, wide["h"], wide["x"]),
+                            k_ref(body, wide["h"], wide["x"]))
+        results["decode_width"][body] = {
+            "ok": equal, **three_ways_ms(lambda body=body: k(
+                body, wide["h"], wide["x"]), iters=ITERS)}
+    results["decode_width"]["cublas_f32_matmul"] = three_ways_ms(
+        lambda: torch.matmul(h32, x32), iters=ITERS)
+    print(json.dumps({"decode_width": results["decode_width"]}), flush=True)
     return results
 
 

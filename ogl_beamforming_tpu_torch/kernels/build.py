@@ -1,11 +1,12 @@
 """Build the CUDA kernels of ``csrc/`` and load them with ctypes.
 
-``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``), one process
-per source, all started together, and links the objects into one shared
-library with a plain C interface; nothing includes PyTorch's headers, so a
-build takes seconds.  The library goes into ``_build/`` beside this package,
-named by a hash of the sources and flags, and is built at first use: the
-first call of a kernel wrapper (or :func:`library`) compiles it.
+``nvcc`` compiles every ``csrc/*.cu`` (with the headers ``csrc/*.cuh``) for
+Hopper (``sm_90a``), one process per source, all started together, and
+links the objects into one shared library with a plain C interface; nothing
+includes PyTorch's headers, so a build takes seconds.  The library goes into
+``_build/`` beside this package, named by a hash of the sources, headers and
+flags, and is built at first use: the first call of a kernel wrapper (or
+:func:`library`) compiles it.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
@@ -102,9 +103,10 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags
+    lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libogl_kernels_{h.hexdigest()[:16]}.so"

@@ -1,4 +1,5 @@
-"""Static SASS counts of the DAS kernels' inner pair loop.
+"""Static SASS counts of the DAS kernels' inner pair loop, and of the int8
+tensor-core kernels.
 
 ``cuobjdump -sass`` of a built library (or of one ``.cu`` source compiled to
 a cubin for ``sm_90a``) is split into functions; in each instantiation of
@@ -23,7 +24,15 @@ Run on a machine with the CUDA toolkit, from the repository root:
     python -m ogl_beamforming_tpu_torch.kernels.sass --source F.cu [--rotation]
 
 ``--source`` counts another ``das.cu`` (an older commit's, say) the same
-way.
+way.  :func:`kernel_counts` counts each instantiation of the int8 skeleton's
+kernels (``decode_i8_kernel``, ``i8_mma_kernel``) whole: its instructions,
+MMAs, ``ldmatrix``, ``cp.async`` and the rest of :data:`I8_OPS`.
+``--source F.cu --same-as G.cu`` also says, for each int8 kernel that both
+compile, whether its SASS is the same instruction for instruction (the
+decode kernel of an older ``decode.cu`` against the current one, say):
+
+    python -m ogl_beamforming_tpu_torch.kernels.sass \
+        --source ogl_beamforming_tpu_torch/csrc/decode.cu --same-as OLD.cu
 """
 
 from __future__ import annotations
@@ -202,6 +211,68 @@ def pair_loops(text: str, family: str = "forces") -> dict:
     return out
 
 
+I8_OPS = ("IMMA", "LDSM", "LDGSTS", "PRMT", "LDS", "SHFL", "STG")
+"""The instructions of the int8 tensor-core skeleton (``csrc/i8_mma.cuh``)
+that :func:`kernel_counts` counts: the MMAs, ``ldmatrix``, ``cp.async``,
+byte permutes, shared loads, shuffles and stores."""
+_I8 = re.compile(r"(decode_i8_kernel|i8_mma_kernel)ILi(\d)E(?:Li(\d)ELi(\d+)ELi(\d+)"
+                 r"ELi(\d+)E)?")
+
+
+def i8_key(name: str) -> str | None:
+    """"<kernel> k<steps>[ b<body> wn<WN> wm<WM> rows<ROWS>]" of a mangled
+    name of the int8 skeleton's kernels (the template arguments of
+    ``csrc/i8_mma.cuh``; body 0 the decode's, 1 the high half alone, 2 and
+    3 K10's int32 and float32 pairs), None for any other."""
+    m = _I8.search(name)
+    if not m:
+        return None
+    return f"{m.group(1)} k{m.group(2)}" + (
+        "" if m.group(3) is None else
+        " b{} wn{} wm{} rows{}".format(*m.groups()[2:]))
+
+
+def kernel_counts(text: str) -> dict:
+    """{:func:`i8_key`: counts} of every instantiation of the int8
+    skeleton's kernels (``decode_i8_kernel`` and ``i8_mma_kernel``) in
+    ``text``: all static instructions of the function and those of
+    :data:`I8_OPS`."""
+    out = {}
+    for name, (instrs, _) in functions(text).items():
+        key = i8_key(name)
+        if key is None:
+            continue
+        ops = [_op(ins).split(".")[0] for _, ins in instrs]
+        out[key] = {"instructions": len(ops),
+                    **{op: ops.count(op) for op in I8_OPS}}
+    return out
+
+
+def same_as(source, other) -> dict:
+    """{:func:`i8_key`: {"same": bool, "reordered": bool, "instructions":
+    [n, n_other], "registers": [r, r_other]}} for each int8 kernel that
+    both ``.cu`` sources compile: "same" where the two SASS listings are
+    equal instruction for instruction, "reordered" where they hold the same
+    instructions in another order."""
+    listings = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, src in enumerate((source, other)):
+            (Path(tmp) / str(i)).mkdir()
+            text, log = compile_sass(src, Path(tmp) / str(i))
+            regs = {i8_key(k): r for k, (r, _) in ptxas_usage(log).items()}
+            listings.append({i8_key(name): ([ins for _, ins in instrs],
+                                            regs.get(i8_key(name)))
+                             for name, (instrs, _) in functions(text).items()
+                             if i8_key(name)})
+    mine, theirs = listings
+    return {key: {"same": mine[key][0] == theirs[key][0],
+                  "reordered": mine[key][0] != theirs[key][0]
+                  and sorted(mine[key][0]) == sorted(theirs[key][0]),
+                  "instructions": [len(mine[key][0]), len(theirs[key][0])],
+                  "registers": [mine[key][1], theirs[key][1]]}
+            for key in sorted(mine.keys() & theirs.keys())}
+
+
 def rotation_share(source) -> dict:
     """Per IQ instantiation: instructions per pair with and without the
     rotation's phase, and the share the rotation takes."""
@@ -228,6 +299,9 @@ def main() -> None:
                     "(default: the built library)")
     ap.add_argument("--rotation", action="store_true",
                     help="also the IQ rotation's share (needs --source)")
+    ap.add_argument("--same-as", metavar="OTHER", help="a second .cu file: "
+                    "whether each int8 kernel's SASS is the same in both "
+                    "(needs --source)")
     args = ap.parse_args()
     if args.source:
         with tempfile.TemporaryDirectory() as tmp:
@@ -238,11 +312,15 @@ def main() -> None:
     usage = {m.group(0): v for k, v in ptxas_usage(log).items()
              for m in [_DAS.search(k)] if m}
     result = {"inner_loop": {f: pair_loops(text, f) for f in FAMILIES},
-              "registers_spills": usage}
+              "registers_spills": usage, "i8_kernels": kernel_counts(text)}
     if args.rotation:
         if not args.source:
             ap.error("--rotation needs --source")
         result["rotation"] = rotation_share(args.source)
+    if args.same_as:
+        if not args.source:
+            ap.error("--same-as needs --source")
+        result["same_as"] = same_as(args.source, args.same_as)
     print(json.dumps(result, indent=1, sort_keys=True))
 
 

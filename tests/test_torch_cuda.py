@@ -710,7 +710,52 @@ def test_micro_probe_i8_exact(dev, out_dtype):
                                   exact.numpy())
 
 
-@pytest.mark.parametrize("shape", [(16, 256), (128, 128 * 64)])
+@pytest.mark.parametrize("shape", [(16, 64), (128, 256), (128, 1000),
+                                   (64, 4096)])
+@pytest.mark.parametrize("out_dtype", [torch.int32, torch.float32])
+def test_micro_k10_shapes(dev, out_dtype, shape):
+    """K10 at N a multiple of 16 and not (1000), equal to the exact int64
+    product and to torch._int_mm (which takes only more than 16 rows), in
+    one launch."""
+    from ogl_beamforming_tpu_torch.experiments import probe_i8
+    k, n = shape
+    rng = np.random.default_rng(k + n)
+    a = torch.from_numpy(rng.integers(-128, 128, (k, k), dtype=np.int8)).to(dev)
+    b = torch.from_numpy(rng.integers(-128, 128, (k, n), dtype=np.int8)).to(dev)
+    before = build.LAUNCHES["micro_i8"]
+    out = probe_i8.kernel2(a, b, out_dtype)
+    assert build.LAUNCHES["micro_i8"] == before + 1
+    assert out.dtype == out_dtype and out.shape == (k, n)
+    exact = a.cpu().to(torch.int64) @ b.cpu().to(torch.int64)
+    assert torch.equal(out.cpu().to(torch.int64), exact)
+    if k > 16:
+        assert torch.equal(out.to(torch.int32), torch._int_mm(a, b))
+
+
+def test_micro_i8_wrappers_raise_on_bad_input(dev):
+    from ogl_beamforming_tpu_torch.experiments import probe_i8, probe_i8b
+    a = torch.ones((32, 32), dtype=torch.int8, device=dev)
+    b = torch.ones((32, 64), dtype=torch.int8, device=dev)
+    x = torch.ones((32, 64), dtype=torch.int16, device=dev)
+    bad = [lambda: probe_i8.kernel2(a, b.to(torch.int16)),
+           lambda: probe_i8.kernel2(a[:16], b),
+           lambda: probe_i8.kernel2(a, b.cpu()),
+           lambda: probe_i8.kernel2(a, b.t().contiguous().t()),
+           lambda: probe_i8.kernel2(torch.ones((129, 129), dtype=torch.int8,
+                                               device=dev),
+                                    torch.ones((129, 8), dtype=torch.int8,
+                                               device=dev)),
+           lambda: probe_i8b.k("full", a, b),
+           lambda: probe_i8b.k("dot", a.to(torch.int16), x),
+           lambda: probe_i8b.k("shift", a, x.cpu()),
+           lambda: probe_i8b.k("rowsum", a[:, :16], x)]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+
+
+@pytest.mark.parametrize("shape", [(16, 256), (128, 128 * 64), (128, 1000),
+                                   (40, 4100)])
 @pytest.mark.parametrize("body", ["shift", "split8", "dot", "rowsum", "full"])
 def test_micro_probe_i8b_exact(dev, body, shape):
     from ogl_beamforming_tpu_torch.experiments import probe_i8b
