@@ -36,16 +36,20 @@ line:
               its twin (1e-4) and bit-equal to them, timed beside those
               four launches;
               demodulate int16 (128, 128, 4096)
-              with the 16-tap Kaiser low-pass (and a complex chirp at D = 2)
+              with the 16-tap Kaiser low-pass and path B's plan's rotation
+              table (and a complex chirp at D = 2)
               and FIR complex64 (128, 128, 2048) with real and complex taps
               to NRMSE 1e-6; CUDA-event times of the kernel (median and
               interquartile range of 21 runs), its twin (median of 5) and,
               where one PyTorch call computes the same function, that call
               (median of 21); and each kernel's bound from its bytes and
-              operations; for each DAS row the kernel's registers,
-              resident warps per SM and SASS instructions per pair; for
-              FORCES its time at each pass of the index table (8 and 32
-              transmits); for HERCULES the run groups, the bound with
+              operations; for demodulate and FIR also the kernel's time
+              from a torch.profiler trace, and beside demodulate the
+              two-call composite of the rotation as torch ops and
+              F.conv1d; for each DAS row the kernel's
+              registers, resident warps per SM and SASS instructions per
+              pair; for FORCES its time at each pass of the index table (8
+              and 32 transmits); for HERCULES the run groups, the bound with
               the run's share counted per triple beside the recounted one,
               and its time walking each channel's transmit interval and
               the whole table.
@@ -105,7 +109,10 @@ line:
   7. trace    torch.profiler over one Quickstart frame and one path E batch
               through Beamformer (utils/profiling.device_time): kernel time
               by name and the device busy share of the window;
-              Beamformer.profile_device_stages of the Quickstart.
+              Beamformer.profile_device_stages of the Quickstart and of
+              path B beside its stages' CUDA-event times; then a trace of
+              phase 3's demodulate and of its FIR calls, their device time
+              per launch onto their rows.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -603,6 +610,7 @@ def phase_kernels(dev) -> list[dict]:
     params, pipe = presets.forces_compounding(
         channel_count=c, transmit_count=a, sample_count=s)
     plan = build_plan(params, pipe, {0: kaiser}, device=dev)
+    phasor = plan.dyn["phasor0"]         # the Demodulate stage's table
     st = plan.descriptor.stages[-1].das
     dyn = plan.dyn["das"]
     check(st.iq and st.sample_count == s // 2,
@@ -633,27 +641,58 @@ def phase_kernels(dev) -> list[dict]:
                         OPS_RCA_IQ_CUBIC))
     del rf
 
-    # demodulate, int16 (128, 128, 4096) with path B's Kaiser taps
+    # demodulate, int16 (128, 128, 4096) with path B's Kaiser taps and its
+    # plan's rotation table, built outside the timed calls as the pipeline
+    # builds it, once per plan
     taps = torch.from_numpy(kaiser.taps).to(dev)
     length = taps.shape[0]
     rf = torch.from_numpy(rng.integers(-2048, 2048, (c, a, s),
                                        dtype=np.int16)).to(dev)
-    dm_k = filtering.demodulate_cuda(rf, taps, fd, fs)
+
+    def demod():
+        return filtering.demodulate_cuda(rf, taps, fd, fs, phasor=phasor)
+
+    dm_k = demod()
     dm_p = filtering.demodulate_ref(rf, taps, fd, fs)
     dm_err = compare(dm_k, dm_p, 1e-6, "demodulate")
-    dm_ms, dm_iqr = kernel_ms(
-        lambda: filtering.demodulate_cuda(rf, taps, fd, fs))
+    dm_ms, dm_iqr = kernel_ms(demod)
     dm_plain_ms = median_ms(
         lambda: filtering.demodulate_ref(rf, taps, fd, fs), RUNS)
     n_out = dm_k.numel()
+    n_pairs = s // 2
+
+    # the yardstick, two calls: the rotation as torch ops, then F.conv1d of
+    # re and im as two depthwise channels (TF32 off: package __init__)
+    w2 = taps.reshape(1, 1, -1).repeat(2, 1, 1)
+
+    def rotate_conv():
+        x = rf.to(torch.float32)
+        i, q = x[..., 0::2], x[..., 1::2]
+        cos, sin = phasor.unbind(-1)
+        re = filtering.SQRT2_F32 * (i * cos - q * sin)
+        im = filtering.SQRT2_F32 * (-q * cos - i * sin)
+        xin = torch.stack([re, im], dim=-2).reshape(-1, 2, n_pairs)
+        return F.conv1d(xin, w2, padding=length - 1, groups=2)[..., :n_pairs]
+
+    y = rotate_conv()
+    comp_err = float((torch.complex(y[:, 0], y[:, 1]).reshape(dm_k.shape)
+                      - dm_k).abs().max())
+    comp_ms = median_ms(rotate_conv)
+    del y
     print(f"[kernels] demodulate int16 {c}x{a}x{s} -> {tuple(dm_k.shape)} "
-          f"complex, {length} Kaiser taps: max abs err {dm_err:.3e}; kernel "
-          f"{dm_ms:.3f} ms (IQR {dm_iqr:.3f}), plain {dm_plain_ms:.3f} ms")
-    rows.append(kernel_row(
+          f"complex, {length} Kaiser taps, the plan's table: max abs err "
+          f"{dm_err:.3e}; kernel {dm_ms:.3f} ms (IQR {dm_iqr:.3f}); "
+          f"plain {dm_plain_ms:.3f} ms; two-call composite (rotation as "
+          f"torch ops + F.conv1d) {comp_ms:.3f} ms (max abs diff "
+          f"{comp_err:.3e})")
+    row = kernel_row(
         "demodulate", "filter.cu", "ops/demod_pallas.py:94", dm_err, dm_ms,
-        dm_plain_ms, rf.numel() * 2 + n_out * 8 + length * 4,
-        n_out * 4 * length + (rf.numel() // 2) * 11))
-    del rf, dm_k, dm_p
+        dm_plain_ms, rf.numel() * 2 + n_out * 8 + length * 4
+        + phasor.numel() * 4, n_out * 4 * length + n_pairs * c * a * 9,
+        iqr=dm_iqr)
+    dm_row = dict(row, composite_ms=comp_ms)
+    rows.append(dm_row)
+    del dm_k, dm_p
 
     # demodulate, float32 with complex chirp taps at D = 2 (smaller shape)
     chirp = make_filter(FilterParameters(
@@ -677,10 +716,13 @@ def phase_kernels(dev) -> list[dict]:
         torch.from_numpy(rng.standard_normal((c, a, n), dtype=np.float32))
     ).to(dev)
     for label, h in (("real", taps), ("complex", ctaps)):
-        k = filtering.fir_cuda(x, h)
+        def fir(h=h):
+            return filtering.fir_cuda(x, h)
+
+        k = fir()
         p = filtering.fir_filter_ref(x, h)
         err = compare(k, p, 1e-6, f"FIR {label} taps")
-        ms, iqr = kernel_ms(lambda: filtering.fir_cuda(x, h))
+        ms, iqr = kernel_ms(fir)
         plain_ms = median_ms(lambda: filtering.fir_filter_ref(x, h), RUNS)
         lib_ms = None
         if label == "real":
@@ -703,11 +745,36 @@ def phase_kernels(dev) -> list[dict]:
               + (f", F.conv1d {lib_ms:.3f} ms (max abs diff {lib_err:.3e})"
                  if lib_ms is not None else ""))
         if label == "real":
-            rows.append(kernel_row(
+            row = kernel_row(
                 "fir", "filter.cu", "ops/demod_pallas.py:160", err, ms,
                 plain_ms, x.numel() * 8 * 2 + h.numel() * 4,
-                x.numel() * 4 * h.shape[0], lib_ms))
+                x.numel() * 4 * h.shape[0], lib_ms, iqr=iqr)
+            rows.append(row)
+            fir_row, fir_real = row, fir
+
+    # both kernels' device time from torch.profiler traces, taken after
+    # phase 7's: a trace this early left later traces of the process
+    # without kernel events on the card
+    FILTER_TRACES.update(demodulate_kernel=(demod, dm_row),
+                         fir_kernel=(fir_real, fir_row))
     return rows
+
+
+FILTER_TRACES: dict = {}   # kernel name -> (call, its table row), phase 3
+
+
+def phase_filter_traces() -> None:
+    """The device time per launch of phase 3's demodulate and FIR calls
+    from a torch.profiler trace (``experiments.traced_ms``), onto their rows
+    of the kernel table."""
+    from ogl_beamforming_tpu_torch.experiments import traced_ms
+
+    for name, (fn, row) in FILTER_TRACES.items():
+        row["trace_ms"] = traced_ms(fn, kernel=name)
+    print("[kernels] by the trace, ms per launch: " + ", ".join(
+        f"{name} {row['trace_ms']:.4f}"
+        for name, (_, row) in FILTER_TRACES.items()))
+    FILTER_TRACES.clear()
 
 
 def phase_kernels_volumes(dev) -> list[dict]:
@@ -1155,15 +1222,29 @@ def phase_main_rca(dev) -> dict:
     return drive("main_rca", dev, params, pipe, raw, voxel, ("das_rca",))
 
 
-def phase_main_demod(dev) -> dict:
+def path_b():
+    """Path B, the demodulate chain at full width: its parameters, pipeline
+    and filters ([(slot, FilterParameters)])."""
     from ogl_beamforming_tpu_torch import (FilterKind, FilterParameters,
                                            KaiserFilterParameters)
     from ogl_beamforming_tpu_torch.models import presets
+
+    params, pipe = presets.forces_compounding(
+        channel_count=128, transmit_count=128, sample_count=4096)
+    # the Kaiser low-pass is designed at the rate it runs at, the pair rate
+    # fs / 2: its delay compensation (L / 2 / fs) assumes that rate
+    fp = FilterParameters(kind=FilterKind.Kaiser,
+                          sampling_frequency=params.sampling_frequency / 2,
+                          kaiser=KaiserFilterParameters(2e6, 4.0, 16))
+    return params, pipe, [(0, fp)]
+
+
+def phase_main_demod(dev) -> dict:
     from ogl_beamforming_tpu_torch.ops import decode
 
-    c, a, s = 128, 128, 4096
-    params, pipe = presets.forces_compounding(
-        channel_count=c, transmit_count=a, sample_count=s)
+    params, pipe, filters = path_b()
+    c, a, s = (params.channel_count, params.acquisition_count,
+               params.sample_count)
     voxel = (int(params.output_points[0]) // 2,
              int(params.output_points[1]) // 2, 0)
     raw = synthesize_forces_frame(
@@ -1171,14 +1252,9 @@ def phase_main_demod(dev) -> dict:
         float(params.xdc_element_pitch[0]), target_world(params, voxel),
         params.demodulation_frequency,
         decode.hadamard_matrix(a, "cpu").numpy())
-    # the Kaiser low-pass is designed at the rate it runs at, the pair rate
-    # fs / 2: its delay compensation (L / 2 / fs) assumes that rate
-    fp = FilterParameters(kind=FilterKind.Kaiser,
-                          sampling_frequency=params.sampling_frequency / 2,
-                          kaiser=KaiserFilterParameters(2e6, 4.0, 16))
     return drive("main_demod", dev, params, pipe, raw, voxel,
                  ("demodulate", "decode_hadamard", "das_forces"),
-                 filters=[(0, fp)])
+                 filters=filters)
 
 
 def phase_main_hercules(dev) -> dict:
@@ -1704,6 +1780,22 @@ def phase_trace(dev) -> None:
     print("[trace] Quickstart profile_device_stages: " + ", ".join(
         f"{k.name} {t * 1e3:.3f} ms" for k, t in stages))
 
+    # path B's stages by CUDA events (as phase 5 times them) beside the
+    # kernels the trace puts in each: the difference is the card idle
+    # inside a stage while the host enqueues it
+    params, pipe, filters = path_b()
+    bf = beamformer(dev, params, pipe.shaders, pipe.data_kind, filters)
+    raw = rng.integers(-2048, 2048, (c, a * s), dtype=np.int16)
+    bf.warmup()
+    for _ in range(RUNS):
+        bf.push_data_with_compute(raw)
+    _, split = stage_split(bf, 1, RUNS)
+    stages = bf.profile_device_stages(raw.reshape(c, a, s))
+    check(all(t > 0 for _, t in stages), f"profile_device_stages {stages}")
+    print(f"[trace] path B stages by CUDA events {split} ms; "
+          "profile_device_stages (kernels by the trace): " + ", ".join(
+              f"{k.name} {t * 1e3:.4f} ms" for k, t in stages))
+
     params, pipe = presets.plane_wave_2d(data_kind=DataKind.Float32Complex)
     bf = beamformer(dev, params, pipe.shaders, pipe.data_kind)
     raw = rng.standard_normal((FRAME_BATCH, params.channel_count,
@@ -1734,6 +1826,7 @@ def main() -> None:
         row["launches"] = launches[row["name"]]
     rows += phase_micro(dev, smi_line)
     phase_trace(dev)
+    phase_filter_traces()
     for row in rows:
         check(row["launches"] > 0, f"{row['name']} never launched on its path")
     print(json.dumps({"kernels": rows}))

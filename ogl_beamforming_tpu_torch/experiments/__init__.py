@@ -53,11 +53,12 @@ def launch_ms(fn, iters: int = 20, repeats: int = 3) -> float:
     return best
 
 
-def traced_ms(fn, iters: int = 20) -> float:
+def traced_ms(fn, iters: int = 20, kernel: str | None = None) -> float:
     """Milliseconds of kernel time per call of ``fn`` from a
     ``torch.profiler`` trace of ``iters`` calls (``utils.profiling``): the
     device's own durations, without the host's launch gaps that a CUDA-event
-    time of launches shorter than their enqueue holds."""
+    time of launches shorter than their enqueue holds.  ``kernel``: count
+    only the kernels whose name holds it (raises if the trace has none)."""
     from ..utils.profiling import device_time
 
     def run():
@@ -65,7 +66,13 @@ def traced_ms(fn, iters: int = 20) -> float:
             out = fn()
         return out
 
-    return device_time(run).module_seconds * 1e3 / iters
+    prof = device_time(run)
+    if kernel is None:
+        return prof.module_seconds * 1e3 / iters
+    times = [t for name, _, t in prof.kernels if kernel in name]
+    if not times:
+        raise RuntimeError(f"no {kernel} kernel events in the trace")
+    return sum(times) * 1e3 / iters
 
 
 def call_times(fns: dict, runs: int = 21) -> dict:

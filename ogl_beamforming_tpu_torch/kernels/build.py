@@ -60,7 +60,7 @@ SIGNATURES = {
     # family, mode, iq, coherency, frames, n_tx, transmits per pass,
     # int* blocks per SM
     "das_occupancy": [_I, _I, _I, _I, _I, _I, _I, _P],
-    # x, omega (device float), taps (re | im), out,
+    # x, phasor (cos | sin per pair), taps (re | im), out,
     # rows, S_in, n_out, L, D, int16 input, complex taps, scale, stream
     "demodulate": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # x, taps (re | im), out,

@@ -7,8 +7,10 @@ left, decimation D, and each tap's product added in tap order; complex data
 with complex taps is four real FIRs, ``rr - ii`` and ``ri + ir``.
 :func:`fir_filter` and :func:`demodulate` dispatch on the tensor's device: a
 CPU tensor takes the twin, a CUDA tensor takes the hand-written kernel
-(``csrc/filter.cu``) or raises.  :func:`hilbert` is ``torch.fft`` on either
-device, as the JAX package's is ``jnp.fft``.
+(``csrc/filter.cu``) or raises.  The rotation's cos and sin depend on the
+pair index only: :func:`demod_phasor` tabulates them once per plan, and
+both the twin and the kernel read that table.  :func:`hilbert` is
+``torch.fft`` on either device, as the JAX package's is ``jnp.fft``.
 """
 
 from __future__ import annotations
@@ -21,7 +23,6 @@ from ..kernels import build
 
 TWO_PI_F32 = float(np.float32(2.0 * np.pi))
 SQRT2_F32 = float(np.float32(np.sqrt(2.0)))
-
 
 def _fir_real(x: torch.Tensor, h: torch.Tensor, d: int) -> torch.Tensor:
     """Real strided FIR ``y[n] = sum_j h[j] * xpad[D n + j]`` with L - 1
@@ -70,26 +71,53 @@ def demod_omega(demodulation_frequency, sampling_frequency,
     return (TWO_PI_F32 * fd) / (fs / 2.0)
 
 
+def demod_phasor(omega: torch.Tensor, s_pairs: int) -> torch.Tensor:
+    """The rotation's table: cos and sin of the float32 argument ``omega *
+    p`` for each pair p in [0, s_pairs), float32 (s_pairs, 2) on
+    ``omega``'s device.  A plan builds it once (``pipeline/plan.py``)."""
+    n = torch.arange(s_pairs, dtype=torch.float32, device=omega.device)
+    arg = omega * n
+    return torch.stack([torch.cos(arg), torch.sin(arg)], dim=-1)
+
+
 def _demod_scale(complex_filter: bool) -> float:
     return 1.0 if complex_filter else SQRT2_F32
+
+
+def _phasor_for(rf: torch.Tensor, phasor, demodulation_frequency,
+                sampling_frequency) -> torch.Tensor:
+    """``phasor`` checked against ``rf``, or built when it is None."""
+    s_pairs = rf.shape[-1] // 2
+    if phasor is None:
+        return demod_phasor(demod_omega(demodulation_frequency,
+                                        sampling_frequency, rf.device),
+                            s_pairs)
+    if (phasor.shape != (s_pairs, 2) or phasor.dtype != torch.float32
+            or phasor.device != rf.device or not phasor.is_contiguous()):
+        raise ValueError(
+            f"phasor must be contiguous float32 ({s_pairs}, 2) on "
+            f"{rf.device}, got {phasor.dtype} {tuple(phasor.shape)} on "
+            f"{phasor.device}")
+    return phasor
 
 
 def demodulate_ref(rf: torch.Tensor, taps: torch.Tensor,
                    demodulation_frequency, sampling_frequency,
                    decimation_rate: int = 1,
-                   complex_filter: bool = False) -> torch.Tensor:
+                   complex_filter: bool = False,
+                   phasor: torch.Tensor | None = None) -> torch.Tensor:
     """Plain-torch demodulation of real ``rf`` (..., S): ``IQ[n] = RF[2n] -
     j RF[2n+1]`` at pair rate fs/2, rotated by ``exp(-j 2 pi f_d n /
     (fs/2))``, scaled by sqrt(2) unless the filter is complex, then the FIR
-    with decimation.  Returns complex64 (..., S // 2 // D)."""
+    with decimation.  ``phasor``: the rotation's table
+    (:func:`demod_phasor`), built here when None.  Returns complex64 (...,
+    S // 2 // D)."""
     s_pairs = rf.shape[-1] // 2
     x = rf[..., :2 * s_pairs].to(torch.float32)
     i = x[..., 0::2]
     q = x[..., 1::2]
-    n = torch.arange(s_pairs, dtype=torch.float32, device=rf.device)
-    arg = demod_omega(demodulation_frequency, sampling_frequency,
-                      rf.device) * n
-    c, s = torch.cos(arg), torch.sin(arg)
+    c, s = _phasor_for(rf, phasor, demodulation_frequency,
+                       sampling_frequency).unbind(-1)
     scale = _demod_scale(complex_filter)
     # (i - j q) * (cos - j sin), scaled
     re = scale * (i * c - q * s)
@@ -141,25 +169,27 @@ def _check_cuda(x: torch.Tensor, name: str, dtypes) -> None:
 def demodulate_cuda(rf: torch.Tensor, taps: torch.Tensor,
                     demodulation_frequency, sampling_frequency,
                     decimation_rate: int = 1,
-                    complex_filter: bool = False) -> torch.Tensor:
+                    complex_filter: bool = False,
+                    phasor: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the fused demodulate kernel on ``rf`` (..., S): contiguous CUDA
     int16 or float32; ``taps`` (L,) float32 or complex64 on the same
-    device.  Same outputs as :func:`demodulate_ref`."""
+    device; ``phasor`` the plan's rotation table (:func:`demod_phasor`),
+    built here when None.  Same outputs as :func:`demodulate_ref`."""
     _check_cuda(rf, "demodulate_cuda", (torch.int16, torch.float32))
     if decimation_rate < 1:
         raise ValueError(f"decimation rate {decimation_rate} < 1")
     h = _kernel_taps(taps, rf.device)
-    omega = demod_omega(demodulation_frequency, sampling_frequency,
-                        rf.device).reshape(1).contiguous()
+    table = _phasor_for(rf, phasor, demodulation_frequency,
+                        sampling_frequency)
     s_in = rf.shape[-1]
     n_out = s_in // 2 // decimation_rate
     rows = rf.numel() // s_in if s_in else 0
     out = torch.empty(rf.shape[:-1] + (n_out,), dtype=torch.complex64,
                       device=rf.device)
     lib = build.library()
-    stream = torch.cuda.current_stream(rf.device).cuda_stream
+    stream = torch._C._cuda_getCurrentRawStream(rf.device.index)
     code = lib.demodulate(
-        rf.data_ptr(), omega.data_ptr(), h.data_ptr(), out.data_ptr(), rows,
+        rf.data_ptr(), table.data_ptr(), h.data_ptr(), out.data_ptr(), rows,
         s_in, n_out, taps.shape[0], decimation_rate,
         int(rf.dtype == torch.int16), int(taps.is_complex()),
         _demod_scale(complex_filter), stream)
@@ -185,7 +215,7 @@ def fir_cuda(x: torch.Tensor, taps: torch.Tensor,
                       dtype=torch.complex64 if cplx else torch.float32,
                       device=x.device)
     lib = build.library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
     code = lib.fir(x.data_ptr(), h.data_ptr(), out.data_ptr(), rows, s, n_out,
                    taps.shape[0], decimation_rate, int(x.is_complex()),
                    int(taps.is_complex()), stream)
@@ -220,16 +250,18 @@ def fir_filter(x: torch.Tensor, taps: torch.Tensor,
 
 def demodulate(rf: torch.Tensor, taps: torch.Tensor, demodulation_frequency,
                sampling_frequency, decimation_rate: int = 1,
-               complex_filter: bool = False) -> torch.Tensor:
+               complex_filter: bool = False,
+               phasor: torch.Tensor | None = None) -> torch.Tensor:
     """Demodulate real ``rf`` (..., S): the CUDA kernel for a CUDA tensor
     (data other than int16 is converted to float32 first, as the twin
-    does), the plain twin for a CPU tensor."""
+    does), the plain twin for a CPU tensor.  ``phasor``: the plan's
+    rotation table (:func:`demod_phasor`), built here when None."""
     if _on_cpu(rf, "demodulation"):
         return demodulate_ref(rf, taps, demodulation_frequency,
                               sampling_frequency, decimation_rate,
-                              complex_filter)
+                              complex_filter, phasor)
     if rf.dtype != torch.int16:
         rf = rf.to(torch.float32)
     return demodulate_cuda(rf.contiguous(), taps, demodulation_frequency,
                            sampling_frequency, decimation_rate,
-                           complex_filter)
+                           complex_filter, phasor)

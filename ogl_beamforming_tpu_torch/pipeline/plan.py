@@ -24,7 +24,8 @@ from ..ops import das as das_ops
 from ..ops.coherency import coherency_weighting
 from ..ops.das_cuda import launch_tables
 from ..ops.decode import decode_hadamard
-from ..ops.filtering import demodulate, fir_filter, hilbert
+from ..ops.filtering import (demod_omega, demod_phasor, demodulate,
+                             fir_filter, hilbert)
 from ..ops.golden import DasParams
 from ..params.enums import (BeamformerError, DataKind, DecodeMode, ErrorKind,
                             ShaderKind)
@@ -226,6 +227,10 @@ def build_plan(parameters: Parameters, pipeline: PipelineSpec,
     )
 
     dyn: dict = {"das": das_dyn}
+    fs_t = torch.tensor(np.float32(parameters.sampling_frequency), device=dev)
+    fd_t = torch.tensor(np.float32(parameters.demodulation_frequency),
+                        device=dev)
+    samples = parameters.sample_count      # along a row entering stage i
     for i, sd in enumerate(stage_descs):
         if sd.kind in (ShaderKind.Filter, ShaderKind.Demodulate):
             f = filters[_stage_parameter(pipeline, sd.kind, i, stage_descs)]
@@ -233,10 +238,15 @@ def build_plan(parameters: Parameters, pipeline: PipelineSpec,
         elif sd.kind == ShaderKind.Decode:
             dyn[f"hadamard{i}"] = torch.as_tensor(
                 _decode_matrix(parameters), dtype=torch.float32, device=dev)
-    dyn["sampling_frequency"] = torch.tensor(
-        np.float32(parameters.sampling_frequency), device=dev)
-    dyn["demodulation_frequency"] = torch.tensor(
-        np.float32(parameters.demodulation_frequency), device=dev)
+        if sd.kind == ShaderKind.Demodulate:
+            # the rotation's cos and sin, once per plan, beside the taps:
+            # omega is that of the plan's frequencies, which the stage
+            # passes (compose_stages)
+            dyn[f"phasor{i}"] = demod_phasor(
+                demod_omega(fd_t, fs_t, dev), samples // 2)
+            samples = samples // 2 // sd.decimation_rate
+    dyn["sampling_frequency"] = fs_t
+    dyn["demodulation_frequency"] = fd_t
 
     return CompiledPlan(descriptor=desc, dyn=dyn)
 
@@ -285,7 +295,7 @@ def compose_stages(desc: PlanDescriptor, rf: torch.Tensor, dyn: dict,
         elif sd.kind == ShaderKind.Demodulate:
             x = demodulate(x, dyn[f"taps{i}"], dyn["demodulation_frequency"],
                            dyn["sampling_frequency"], sd.decimation_rate,
-                           sd.filter_complex)
+                           sd.filter_complex, dyn[f"phasor{i}"])
         elif sd.kind == ShaderKind.Filter:
             x = fir_filter(x, dyn[f"taps{i}"], 1)
         elif sd.kind == ShaderKind.Hilbert:

@@ -511,34 +511,103 @@ def _taps(cplx, dev, n=16):
     return torch.from_numpy(h).to(dev)
 
 
-@pytest.mark.parametrize("d", [1, 2])
+# (shape, taps): odd S (every other row at an odd sample offset), S not a
+# multiple of 8 or of a tile, a row count that is prime, L = 1, 16 (the
+# register window at D = 1), 37 and 64 (the runtime-L loop)
+DEMOD_SHAPES = [((3, 5, 1001), 16), ((7, 1002), 1), ((2, 3, 4097), 64),
+                ((11, 514), 37)]
+FIR_SHAPES = [((4, 3, 777), 37), ((7, 1001), 16), ((5, 1026), 1),
+              ((3, 2, 2048), 64)]
+
+
+@pytest.mark.parametrize("shape, taps", DEMOD_SHAPES)
+@pytest.mark.parametrize("d", [1, 2, 3])
 @pytest.mark.parametrize("cplx_taps", [False, True])
 @pytest.mark.parametrize("dtype", [torch.int16, torch.float32])
-def test_demodulate_kernel_matches_twin(dev, dtype, cplx_taps, d):
+def test_demodulate_kernel_matches_twin(dev, dtype, cplx_taps, d, shape,
+                                        taps):
     rng = np.random.default_rng(7)
-    rf = torch.from_numpy(rng.integers(-2048, 2048, (3, 5, 1001))).to(
+    rf = torch.from_numpy(rng.integers(-2048, 2048, shape)).to(
         device=dev, dtype=dtype)
-    h = _taps(cplx_taps, dev)
+    h = _taps(cplx_taps, dev, n=taps)
     before = build.LAUNCHES["demodulate"]
     out = filtering.demodulate(rf, h, 7.8e6, 40e6, d, cplx_taps)
     assert build.LAUNCHES["demodulate"] == before + 1
     _close(out, filtering.demodulate_ref(rf, h, 7.8e6, 40e6, d, cplx_taps))
 
 
-@pytest.mark.parametrize("d", [1, 2])
+@pytest.mark.parametrize("shape, taps", FIR_SHAPES)
+@pytest.mark.parametrize("d", [1, 2, 3])
 @pytest.mark.parametrize("cplx_taps", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
-def test_fir_kernel_matches_twin(dev, dtype, cplx_taps, d):
+def test_fir_kernel_matches_twin(dev, dtype, cplx_taps, d, shape, taps):
     rng = np.random.default_rng(8)
-    x = torch.from_numpy(rng.standard_normal((4, 3, 777)).astype(
+    x = torch.from_numpy(rng.standard_normal(shape).astype(
         np.float32)).to(dev)
     if dtype == torch.complex64:
         x = torch.complex(x, x.flip(-1))
-    h = _taps(cplx_taps, dev, n=37)
+    h = _taps(cplx_taps, dev, n=taps)
     before = build.LAUNCHES["fir"]
     out = filtering.fir_filter(x, h, d)
     assert build.LAUNCHES["fir"] == before + 1
     _close(out, filtering.fir_filter_ref(x, h, d))
+
+
+def test_filter_kernels_at_path_b_shapes(dev):
+    """Path B's demodulate (128 x 128 x 4096 int16, its 16-tap Kaiser at
+    the pair rate, the plan's table) and the FIR on its complex output."""
+    from ogl_beamforming_tpu_torch.utils.filters import make_filter
+    fs, fd = 40e6, 7.8e6
+    taps = torch.from_numpy(make_filter(FilterParameters(
+        kind=FilterKind.Kaiser, sampling_frequency=fs / 2,
+        kaiser=KaiserFilterParameters(2e6, 4.0, 16))).taps).to(dev)
+    rng = np.random.default_rng(12)
+    rf = torch.from_numpy(rng.integers(-2048, 2048, (128, 128, 4096),
+                                       dtype=np.int16)).to(dev)
+    table = filtering.demod_phasor(filtering.demod_omega(fd, fs, dev), 2048)
+    out = filtering.demodulate(rf, taps, fd, fs, phasor=table)
+    _close(out, filtering.demodulate_ref(rf, taps, fd, fs))
+    _close(filtering.fir_filter(out, taps),
+           filtering.fir_filter_ref(out, taps))
+
+
+def test_fir_decimation_beyond_shared_memory_raises(dev):
+    """The runtime-L loop's window of D * 1023 + L samples fits shared
+    memory up to D = 28: D = 29 raises, and the next launch runs."""
+    x = torch.ones((2, 4096), dtype=torch.float32, device=dev)
+    h = _taps(False, dev, n=5)
+    with pytest.raises(RuntimeError, match="fir"):
+        filtering.fir_filter(x, h, 29)
+    _close(filtering.fir_filter(x, h, 28), filtering.fir_filter_ref(x, h, 28))
+
+
+def test_plan_rebuilt_with_another_demodulation_frequency(dev):
+    """A parameter push rebuilds the plan's rotation table: the Demodulate
+    stage then gives the twin's result at the new frequency."""
+    p, _ = presets.forces_compounding(channel_count=4, transmit_count=2,
+                                      sample_count=1024)
+    fp = FilterParameters(kind=FilterKind.Kaiser,
+                          sampling_frequency=p.sampling_frequency / 2,
+                          kaiser=KaiserFilterParameters(2e6, 4.0, 16))
+    rng = np.random.default_rng(14)
+    raw = rng.integers(-2048, 2048, (4, 2 * 1024), dtype=np.int16)
+    bf = Beamformer(device=dev)
+    bf.push_parameters(p)
+    bf.push_pipeline([ShaderKind.Demodulate], DataKind.Int16)
+    bf.create_filter(fp, 0)
+    taps = torch.from_numpy(bf._blocks[0].filters[0].taps).to(dev)
+    rf = torch.from_numpy(raw.reshape(4, 2, 1024)).to(dev)
+    outs = []
+    for fd in (p.demodulation_frequency, 3.1e6):
+        p.demodulation_frequency = fd
+        bf.push_parameters(p)
+        before = build.LAUNCHES["demodulate"]
+        out = bf.push_data_with_compute(raw).data
+        assert build.LAUNCHES["demodulate"] == before + 1
+        _close(out, filtering.demodulate_ref(rf, taps, fd,
+                                             p.sampling_frequency))
+        outs.append(out)
+    assert not torch.equal(outs[0], outs[1])
 
 
 def test_beamformer_cuda_matches_cpu_on_paths_a_and_b(dev):

@@ -59,6 +59,7 @@ from ogl_beamforming_tpu.utils.transforms import (  # noqa: E402
 from ogl_beamforming_tpu.utils.zbp import load_zbp  # noqa: E402
 from ogl_beamforming_tpu_torch import convert  # noqa: E402
 from ogl_beamforming_tpu_torch.models import presets as port_presets  # noqa: E402
+from ogl_beamforming_tpu_torch.ops import filtering as port_filtering  # noqa: E402
 from ogl_beamforming_tpu_torch.pipeline import executor, plan  # noqa: E402
 from ogl_beamforming_tpu_torch.pipeline.spec import (  # noqa: E402
     PipelineSpec as PortPipelineSpec)
@@ -518,6 +519,13 @@ def test_dyn_from_numpy_matches_build_plan(case):
         PortPipelineSpec.from_shaders(shaders, kind), port_filters_,
         sparse_elements=sparse, device="cpu").dyn
     ref = convert.dyn_from_numpy(jax.tree.map(np.asarray, jp.dyn), "cpu")
+    if case == "demod":
+        # the one key the port adds: the Demodulate stage's rotation table,
+        # built once per plan from the JAX plan's own frequencies
+        omega = port_filtering.demod_omega(ref["demodulation_frequency"],
+                                           ref["sampling_frequency"], "cpu")
+        assert torch.equal(ours.pop("phasor0"), port_filtering.demod_phasor(
+            omega, p.sample_count // 2))
     _assert_dyn_equal(ours, ref)
 
 
