@@ -95,9 +95,18 @@ line:
               module's sweep, launch counts set to 0 just before and read
               just after (K5, K6: every variant in shared and device
               memory, by CUDA events and by its kernel time in a profiler
-              trace; K7: the REPS slope of every variant in both; K8 and
-              K9: the cubic-tap gather bundle and the one-hot product at B
-              = 8, 32, 128, K8 from the trace, K9 by the UNITS slope).
+              trace, and each row by the trace with its bound share; K7:
+              the REPS slope of every variant in both; K8 and K9: the
+              cubic-tap gather bundle and the one-hot product at B = 8, 32,
+              128, K8 from the trace, K9 by the UNITS slope, printed as a
+              fit). K8 and K9 rows: the one-hot kernel at every B by
+              events (median, IQR) and by the trace, its bound recounted
+              for the function (the dense products at the bf16 peak, W's
+              nonzeros on the CUDA cores), the products alone as one bf16
+              torch.matmul (library_ms), and the kernel's registers and
+              the static HGMMA count of each instantiation's unit loop,
+              which must equal 2 B 128^2 per unit and block over the
+              operations of m64nBk16 and the two warpgroups.
               Prints cycles per warp gather, ns per voxel-row-frame and the
               SM clock; K10 beside torch._int_mm as a single call (with the
               enqueue), 20 back to back and by the trace, and the host's
@@ -282,6 +291,7 @@ def phase_build() -> None:
     text = sass.dump(build.library_path())
     BUILD_FACTS["loops"] = {f: sass.pair_loops(text, f) for f in sass.FAMILIES}
     BUILD_FACTS["i8"] = sass.kernel_counts(text)
+    BUILD_FACTS["onehot"] = sass.onehot_loops(text)
     decode = "; ".join(f"{m.group(1)} {regs} registers, {spill} B spilled"
                        for name, (regs, spill) in sorted(usage.items())
                        for m in [re.search(r"(decode_(?:i8|f32)_kernel(?:ILi\d)?)",
@@ -1404,10 +1414,21 @@ def print_gather_launches(label, res) -> None:
               f"{r['cycles_per_warp_gather']:.3f}" for k, r in res.items()))
 
 
-def phase_micro_gather(dev) -> list[tuple[dict, int]]:
+def gather_trace(label, row, fn, smi_line) -> None:
+    """The row's kernel time by the trace, without the enqueue its
+    CUDA-event time holds, and its bound share by it."""
+    from ogl_beamforming_tpu_torch.experiments import traced_ms
+    row["trace_ms"] = traced_ms(fn, kernel="gather_kernel")
+    print(f"[micro] {label} row ({smi_line}): events {row['ms']:.4f} ms "
+          f"(IQR {row['iqr_ms']:.4f}), trace {row['trace_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} -> {row['bound_ms'] / row['trace_ms']:.1%} "
+          "by the trace")
+
+
+def phase_micro_gather(dev, smi_line) -> list[tuple[dict, int]]:
     """K5, K6, K7: every variant in both memory spaces against its plain
     version, the sweeps, and one row each (timed through the launcher, past
-    the wrapper's index check)."""
+    the wrapper's index check; K5 and K6 also by the trace)."""
     from ogl_beamforming_tpu_torch.experiments import (gather_micro,
                                                        gather_micro2,
                                                        gather_micro3,
@@ -1428,16 +1449,19 @@ def phase_micro_gather(dev) -> list[tuple[dict, int]]:
             v, x, sm, iters=MICRO_ITERS)
          for v in gather_micro.VARIANTS for sm in (True, False)}))
     print_gather_launches("K5 gather_micro", res)
-    ms, iqr = kernel_ms(lambda: launch_gather(
+    k5 = lambda: launch_gather(  # noqa: E731
         gather_micro.VARIANT_IDS["mod"], x["src"], x["src"], x["idx"],
-        x["src"], gather_micro.REPS, gather_micro.STEPS, True))
+        x["src"], gather_micro.REPS, gather_micro.STEPS, True)
+    ms, iqr = kernel_ms(k5)
     plain = median_ms(lambda: gather_micro.kernel_ref(
         "mod", x["src"], x["idx"], steps=gather_micro.STEPS), RUNS)
-    out.append((kernel_row(
+    row = kernel_row(
         "micro_gather_k5", "micro_gather.cu", "experiments/gather_micro.py:56",
         err, ms, plain, TILE_BYTES, gather_ops(
             gather_micro.STEPS, gather_micro.REPS,
-            gather_micro.OPS_PER_REP["mod"]), iqr=iqr), n))
+            gather_micro.OPS_PER_REP["mod"]), iqr=iqr)
+    gather_trace("K5 mod, shared", row, k5, smi_line)
+    out.append((row, n))
 
     # K6
     x = gather_micro2.make_inputs(dev)
@@ -1456,17 +1480,20 @@ def phase_micro_gather(dev) -> list[tuple[dict, int]]:
          for v in gather_micro2.VARIANTS for sm in (True, False)}))
     print_gather_launches("K6 gather_micro2", res)
     src, src2 = x["hermite_pair"]
-    ms, iqr = kernel_ms(lambda: launch_gather(
+    k6 = lambda: launch_gather(  # noqa: E731
         gather_micro2.VARIANT_IDS["hermite_pair"], src, src2, x["idx"],
-        x["w"], gather_micro2.REPS, gather_micro2.STEPS, True))
+        x["w"], gather_micro2.REPS, gather_micro2.STEPS, True)
+    ms, iqr = kernel_ms(k6)
     plain = median_ms(lambda: gather_micro2.kernel_ref(
         "hermite_pair", src, src2, x["idx"], x["w"],
         steps=gather_micro2.STEPS), RUNS)
-    out.append((kernel_row(
+    row = kernel_row(
         "micro_gather_k6", "micro_gather.cu",
         "experiments/gather_micro2.py:136", err, ms, plain, TILE_BYTES,
         gather_ops(gather_micro2.STEPS, gather_micro2.REPS,
-                   gather_micro2.OPS_PER_REP["hermite_pair"]), iqr=iqr), n))
+                   gather_micro2.OPS_PER_REP["hermite_pair"]), iqr=iqr)
+    gather_trace("K6 hermite_pair, shared", row, k6, smi_line)
+    out.append((row, n))
 
     # K7: every variant at the largest REPS, then the slope sweep
     x = gather_micro3.make_inputs(dev)
@@ -1506,15 +1533,48 @@ def phase_micro_gather(dev) -> list[tuple[dict, int]]:
     return out
 
 
-def phase_micro_onehot(dev) -> list[tuple[dict, int]]:
+# The one-hot kernel (csrc/micro_onehot.cu): wgmma m64nBk16, so 2 x 64 x B
+# x 16 operations an instruction, issued by each of a block's two
+# warpgroups running the same unit loop.
+ONEHOT_MMA_M, ONEHOT_MMA_K, ONEHOT_WARPGROUPS = 64, 16, 2
+
+
+def onehot_facts(batch: int) -> str:
+    """Registers, spills and the static SASS of the unit loop (phase 2) of
+    ``onehot_kernel<batch>``; fails unless the loop holds exactly the
+    tensor-core instructions of one dense 128-deep product per unit:
+    2 B 128^2 per unit and block over the instruction's operations and the
+    warpgroups that issue the loop."""
+    from ogl_beamforming_tpu_torch.experiments import onehot_product_ops
+    from ogl_beamforming_tpu_torch.kernels import sass
+    regs = [v for k, v in BUILD_FACTS["usage"].items()
+            if f"onehot_kernelILi{batch}E" in k]
+    loop = BUILD_FACTS["onehot"].get(batch)
+    check(len(regs) == 1 and loop is not None,
+          f"no ptxas entry or unit loop for onehot_kernel<{batch}>")
+    want = (onehot_product_ops(batch, 1, 1)
+            / (2 * ONEHOT_MMA_M * batch * ONEHOT_MMA_K) / ONEHOT_WARPGROUPS)
+    check(loop["HGMMA"] + loop["HMMA"] == want,
+          f"onehot_kernel<{batch}>: {loop['HGMMA']} HGMMA + {loop['HMMA']} "
+          f"HMMA in the unit loop, want {want:g}")
+    return (f"B = {batch}: {regs[0][0]} registers, {regs[0][1]} B spilled; "
+            f"unit loop {loop['instructions']} instructions ("
+            + ", ".join(f"{op} {loop[op]}" for op in sass.ONEHOT_OPS)
+            + f"; {want:g} tensor-core instructions wanted)")
+
+
+def phase_micro_onehot(dev, smi_line) -> list[tuple[dict, int]]:
     """K8, K9: the gather bundle and the one-hot product against their
-    plain versions, the sweeps, and a one-hot row each (B = 128)."""
-    from ogl_beamforming_tpu_torch.experiments import (ONEHOT_BATCHES,
-                                                       launch_onehot,
-                                                       onehot_build_ops,
-                                                       onehot_micro,
-                                                       onehot_micro2,
-                                                       onehot_mma_ops)
+    plain versions (one-hot at every B), the sweeps, K9's slope fit, and a
+    one-hot row each: B = 128 by events (with the IQR) and by the trace,
+    every B beside it, the recounted bound, the product alone as one bf16
+    ``torch.matmul``, and the kernel's registers and unit-loop SASS."""
+    from ogl_beamforming_tpu_torch.experiments import (
+        ONEHOT_BATCHES, launch_onehot, onehot_band_writes,
+        onehot_library_operands, onehot_micro, onehot_micro2,
+        onehot_product_ops, traced_ms)
+    print(f"[micro] onehot_kernel build ({smi_line}): "
+          + "; ".join(onehot_facts(b) for b in ONEHOT_BATCHES))
     out = []
     for mod, label, units, replaces in (
             (onehot_micro, "K8", onehot_micro.UNITS,
@@ -1555,17 +1615,59 @@ def phase_micro_onehot(dev) -> list[tuple[dict, int]]:
             print(f"[micro] {label} {mod.__name__.rsplit('.', 1)[1]} {k}: "
                   + ", ".join(f"{kk} {v:.4f}" for kk, v in ns.items())
                   + f" (us {us})")
+        if mod is onehot_micro2:
+            print(f"[micro] K9 slope fit ({smi_line}), time over UNITS "
+                  f"{list(onehot_micro2.UNITS_SWEEP)} at STEPS "
+                  f"{onehot_micro2.STEPS}: " + "; ".join(
+                      f"{k} {r['unit_ns']:.3f} ns a unit of all blocks -> "
+                      f"{r['ns_per_voxelrow_frame']:.4f} ns per voxel-row-"
+                      f"frame" for k, r in res.items()))
+        bound_ms = {}
+        per_b = {}
+        for b in ONEHOT_BATCHES:
+            o = (x[f"rf{b}"], x["kvox"], x["wt4"])
+            fn = lambda o=o: launch_onehot(  # noqa: E731
+                *o, units, mod.K8_FORM, mod.STEPS)
+            b_ms, b_iqr = kernel_ms(fn)
+            per_b[str(b)] = {"ms": b_ms, "iqr_ms": b_iqr,
+                             "trace_ms": traced_ms(fn, kernel="onehot_kernel")}
+            bound_ms[b] = bound((b * 128 * 2 + 16 * 128) * 4, [
+                (onehot_product_ops(b, units, mod.STEPS), PEAK_BF16_PER_S),
+                (onehot_band_writes(units, mod.STEPS), PEAK_F32_PER_S)])[0]
+        print(f"[micro] {label} one-hot, UNITS {units}, STEPS {mod.STEPS} "
+              f"({smi_line}): " + "; ".join(
+                  f"B = {b} events {r['ms']:.4f} ms (IQR {r['iqr_ms']:.4f}), "
+                  f"trace {r['trace_ms']:.4f} ms, bound {bound_ms[int(b)]:.4f}"
+                  f" -> {bound_ms[int(b)] / r['trace_ms']:.1%} by the trace"
+                  for b, r in per_b.items()))
         o = (x["rf128"], x["kvox"], x["wt4"])
-        ms, iqr = kernel_ms(lambda: launch_onehot(*o, units, mod.K8_FORM,
-                                                  mod.STEPS))
+        plain_out = mod.onehot_kernel_ref(*o, units=units)
         plain = median_ms(lambda: mod.onehot_kernel_ref(
             *o, units=units, steps=mod.STEPS), RUNS)
-        out.append((kernel_row(
+        a, w = onehot_library_operands(*o, units, mod.K8_FORM, mod.STEPS)
+        lib_fn = lambda: torch.matmul(a, w)  # noqa: E731
+        lib_err = nrmse(plain_out.cpu().numpy(),
+                        lib_fn()[:128].float().cpu().numpy())
+        check(lib_err <= 1e-2, f"{label} torch.matmul yardstick: NRMSE "
+              f"{lib_err:.3e} > 1e-2 (bf16 output)")
+        lib = median_ms(lib_fn)
+        lib_trace = traced_ms(lib_fn)
+        print(f"[micro] {label} the products alone, bf16 torch.matmul "
+              f"({tuple(a.shape)} @ {tuple(w.shape)}, W built outside the "
+              f"timing; NRMSE {lib_err:.2e} with its bf16 output; "
+              f"{smi_line}): {lib:.4f} ms by events, {lib_trace:.4f} by the "
+              "trace")
+        del a, w
+        row = kernel_row(
             f"micro_onehot_{label.lower()}", "micro_onehot.cu", replaces,
-            err, ms, plain, (128 * 128 * 2 + 16 * 128) * 4,
-            [(onehot_build_ops(units, mod.STEPS), PEAK_F32_PER_S),
-             (onehot_mma_ops(128, units, mod.STEPS), PEAK_BF16_PER_S)],
-            iqr=iqr), n))
+            err, per_b["128"]["ms"], plain, (128 * 128 * 2 + 16 * 128) * 4,
+            [(onehot_product_ops(128, units, mod.STEPS), PEAK_BF16_PER_S),
+             (onehot_band_writes(units, mod.STEPS), PEAK_F32_PER_S)],
+            lib, iqr=per_b["128"]["iqr_ms"])
+        row.update(trace_ms=per_b["128"]["trace_ms"], onehot_ms=per_b,
+                   library="bf16 torch.matmul: the products alone",
+                   library_trace_ms=lib_trace)
+        out.append((row, n))
     return out
 
 
@@ -1722,7 +1824,8 @@ def phase_micro(dev, smi_line) -> list[dict]:
                       for (k, sm), (n_lds, n_ldg) in sorted(
                           loads.items(), key=lambda kv: str(kv[0]))))
     clock = sm_clock_mhz()
-    rows = (phase_micro_gather(dev) + phase_micro_onehot(dev)
+    rows = (phase_micro_gather(dev, smi_line)
+            + phase_micro_onehot(dev, smi_line)
             + phase_micro_i8(dev, smi_line))
     for row, n in rows:
         row["launches"] = n

@@ -297,28 +297,38 @@ def onehot_offset(u: int, k8: bool) -> int:
     return (u & 3) if k8 else 4 * u
 
 
+def onehot_weights(k, wt, u: int, k8: bool):
+    """Plain torch: unit ``u``'s banded weight matrix in float32,
+    ``W[..., s, v] = sum_t wt[..., t, v] [s == k[..., 0, v] + t + off(u)]``
+    (t = 0..3, s = 0..127): (..., LANE, LANE) for (..., 8, LANE) ``k`` and
+    ``wt``."""
+    iota = torch.arange(LANE, dtype=torch.int32, device=wt.device)[:, None]
+    zero = torch.zeros((), dtype=torch.float32, device=wt.device)
+    wmat = torch.zeros(wt.shape[:-2] + (LANE, LANE), dtype=torch.float32,
+                       device=wt.device)
+    for t in range(4):
+        kk = k[..., 0:1, :] + (t + onehot_offset(u, k8))
+        wmat = wmat + torch.where(iota == kk, wt[..., t:t + 1, :], zero)
+    return wmat
+
+
 def onehot_ref(rf, k, wt, units: int, k8: bool, steps: int = 1):
     """Plain torch: per unit the banded weight matrix
-    ``W[s, v] = sum_t wt[t, v] [s == k[0, v] + t + off(u)]`` (t = 0..3) in
-    float32, rounded to bf16, and ``acc += bf16(rf) @ W`` in float32, for
-    ``steps`` grid steps at once (the last is returned)."""
+    (:func:`onehot_weights`) rounded to bf16, and ``acc += bf16(rf) @ W`` in
+    float32, for ``steps`` grid steps at once (the last is returned)."""
     rf, k, wt = expand_steps(steps, rf, k, wt)
-    iota = torch.arange(LANE, dtype=torch.int32, device=rf.device)[:, None]
-    zero = torch.zeros((), dtype=torch.float32, device=rf.device)
     rf_b = rf.to(torch.bfloat16).to(torch.float32)
     acc = torch.zeros(rf.shape, dtype=torch.float32, device=rf.device)
     for u in range(units):
-        wmat = torch.zeros((steps, LANE, LANE), dtype=torch.float32,
-                           device=rf.device)
-        for t in range(4):
-            kk = k[:, 0:1, :] + (t + onehot_offset(u, k8))
-            wmat = wmat + torch.where(iota == kk, wt[:, t:t + 1, :], zero)
+        wmat = onehot_weights(k, wt, u, k8)
         acc = acc + torch.matmul(rf_b,
                                  wmat.to(torch.bfloat16).to(torch.float32))
     return acc[-1]
 
 
 def check_onehot_args(rf, k, wt) -> None:
+    """Shapes, types and one CUDA device; the kernel reads ``rf`` 16 bytes
+    at a time."""
     if rf.dim() != 2 or rf.shape[0] not in ONEHOT_BATCHES:
         raise ValueError(f"rf must be (B, {LANE}) with B in {ONEHOT_BATCHES},"
                          f" got {tuple(rf.shape)}")
@@ -326,6 +336,8 @@ def check_onehot_args(rf, k, wt) -> None:
     check_tile("k", k, (8, LANE), torch.int32)
     check_tile("wt", wt, (8, LANE), torch.float32)
     check_cuda(rf, k, wt)
+    if rf.data_ptr() % 16:
+        raise ValueError("rf must be 16-byte aligned")
 
 
 def launch_onehot(rf, k, wt, units: int, k8: bool, steps: int):
@@ -357,15 +369,27 @@ def onehot(rf, k, wt, units: int, k8: bool, steps: int):
     return onehot_ref(rf, k, wt, units, k8)
 
 
-def onehot_build_ops(units: int, steps: int) -> float:
-    """CUDA-core operations of the W builds: per entry and tap a compare, a
-    select and an add, and a bf16 rounding per entry (13 per entry)."""
-    return 13.0 * LANE * LANE * units * steps
-
-
-def onehot_mma_ops(batch: int, units: int, steps: int) -> float:
-    """bf16 tensor-core operations: 2 B 128^2 per unit."""
+def onehot_product_ops(batch: int, units: int, steps: int) -> float:
+    """bf16 tensor-core operations of the function: one dense (B, 128) @
+    (128, 128) product per unit and block, 2 B 128^2."""
     return 2.0 * batch * LANE * LANE * units * steps
+
+
+def onehot_band_writes(units: int, steps: int) -> float:
+    """W's nonzeros, 4 x 128 per unit and block, each written once: the only
+    CUDA-core work the function needs (how a kernel builds W is its own
+    cost, not the function's)."""
+    return 4.0 * LANE * units * steps
+
+
+def onehot_library_operands(rf, k, wt, units: int, k8: bool, steps: int):
+    """The operands of one bf16 ``torch.matmul`` that does the products
+    alone, 2 B 128^2 x units x steps operations: A (steps B, units 128) is
+    ``rf`` repeated along K over the units and along M over the steps, and
+    B (units 128, 128) the units' W stacked along K."""
+    a = rf.to(torch.bfloat16).repeat(steps, units)
+    w = torch.cat([onehot_weights(k, wt, u, k8) for u in range(units)])
+    return a, w.to(torch.bfloat16)
 
 
 def gather_hermite_ref(src, src2, idx, w, units: int, k8: bool,

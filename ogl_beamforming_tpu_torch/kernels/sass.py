@@ -24,7 +24,9 @@ Run on a machine with the CUDA toolkit, from the repository root:
     python -m ogl_beamforming_tpu_torch.kernels.sass --source F.cu [--rotation]
 
 ``--source`` counts another ``das.cu`` (an older commit's, say) the same
-way.  :func:`kernel_counts` counts each instantiation of the int8 skeleton's
+way.  :func:`onehot_loops` counts the unit loop of each instantiation of
+``onehot_kernel`` (``csrc/micro_onehot.cu``).  :func:`kernel_counts`
+counts each instantiation of the int8 skeleton's
 kernels (``decode_i8_kernel``, ``i8_mma_kernel``) whole: its instructions,
 MMAs, ``ldmatrix``, ``cp.async`` and the rest of :data:`I8_OPS`.
 ``--source F.cu --same-as G.cu`` also says, for each int8 kernel that both
@@ -248,6 +250,46 @@ def kernel_counts(text: str) -> dict:
     return out
 
 
+ONEHOT_OPS = ("HGMMA", "HMMA", "STS", "LDS", "BAR", "WARPGROUP")
+"""The instructions of the one-hot kernel's unit loop that
+:func:`onehot_loops` counts: the tensor-core products (``wgmma`` as
+``HGMMA``, ``mma.sync`` as ``HMMA``), the band's shared stores, shared
+loads, barriers and the ``wgmma`` fences and waits."""
+_ONEHOT = re.compile(r"onehot_kernelILi(\d+)E")
+
+
+def onehot_loops(text: str) -> dict:
+    """{B: counts} of the unit loop of every instantiation of
+    ``onehot_kernel`` (``csrc/micro_onehot.cu``) in ``text``: the innermost
+    loop that holds a tensor-core product, its instructions and those of
+    :data:`ONEHOT_OPS`; None for an instantiation with no such loop."""
+    out = {}
+    for name, (instrs, labels) in functions(text).items():
+        m = _ONEHOT.search(name)
+        if not m:
+            continue
+        ops = [(addr, _op(ins).split(".")[0]) for addr, ins in instrs]
+        loops = []
+        for addr, ins in instrs:
+            b = _BRA.search(ins)
+            if not b:
+                continue
+            tgt = b.group(1)
+            target = int(tgt, 16) if tgt.startswith("0x") else labels.get(tgt)
+            if target is not None and target <= addr and any(
+                    target <= a <= addr and op in ("HGMMA", "HMMA")
+                    for a, op in ops):
+                loops.append((target, addr))
+        if not loops:
+            out[int(m.group(1))] = None
+            continue
+        lo, hi = min(loops, key=lambda lh: lh[1] - lh[0])
+        body = [op for a, op in ops if lo <= a <= hi]
+        out[int(m.group(1))] = {"instructions": len(body),
+                                **{op: body.count(op) for op in ONEHOT_OPS}}
+    return out
+
+
 def same_as(source, other) -> dict:
     """{:func:`i8_key`: {"same": bool, "reordered": bool, "instructions":
     [n, n_other], "registers": [r, r_other]}} for each int8 kernel that
@@ -312,7 +354,8 @@ def main() -> None:
     usage = {m.group(0): v for k, v in ptxas_usage(log).items()
              for m in [_DAS.search(k)] if m}
     result = {"inner_loop": {f: pair_loops(text, f) for f in FAMILIES},
-              "registers_spills": usage, "i8_kernels": kernel_counts(text)}
+              "registers_spills": usage, "i8_kernels": kernel_counts(text),
+              "onehot_unit_loop": onehot_loops(text)}
     if args.rotation:
         if not args.source:
             ap.error("--rotation needs --source")

@@ -754,18 +754,44 @@ def test_micro_gather_hermite_matches_plain(dev, k8, smem):
     _micro_close(out, mod.gather_kernel_ref(*args, units=12), False)
 
 
+@pytest.mark.parametrize("steps", [1, 3, 400])
+@pytest.mark.parametrize("units", [1, 2, 5, 12, 28])
 @pytest.mark.parametrize("batch", [8, 32, 128])
 @pytest.mark.parametrize("k8", [True, False])
-def test_micro_onehot_matches_plain(dev, k8, batch):
+def test_micro_onehot_matches_plain(dev, k8, batch, units, steps):
+    """Odd unit counts and 1 end the kernel's double buffer on either tile;
+    400 blocks are more than the card holds at once."""
     from ogl_beamforming_tpu_torch.experiments import onehot_micro, \
         onehot_micro2
     mod = onehot_micro if k8 else onehot_micro2
     x = onehot_micro.make_inputs(dev)
     args = (x[f"rf{batch}"], x["kvox"], x["wt4"])
     before = build.LAUNCHES["micro_onehot"]
-    out = mod.onehot_kernel(*args, units=12, steps=3)
+    out = mod.onehot_kernel(*args, units=units, steps=steps)
     assert build.LAUNCHES["micro_onehot"] == before + 1
-    _micro_close(out, mod.onehot_kernel_ref(*args, units=12), False)
+    _micro_close(out, mod.onehot_kernel_ref(*args, units=units), False)
+
+
+def test_micro_onehot_raises_on_bad_input(dev):
+    """A B the kernel has no path for, or a tensor off the card, raises; the
+    C entry point itself refuses B = 16 and a count of 0."""
+    from ogl_beamforming_tpu_torch.experiments import (launch_onehot, onehot,
+                                                       onehot_micro)
+    x = onehot_micro.make_inputs(dev)
+    rf16 = torch.zeros((16, 128), dtype=torch.float32, device=dev)
+    bad = [lambda: onehot(rf16, x["kvox"], x["wt4"], 2, True, 1),
+           lambda: onehot(x["rf8"], x["kvox"].cpu(), x["wt4"], 2, True, 1),
+           lambda: onehot(x["rf8"], x["kvox"], x["wt4"].cpu(), 2, False, 1),
+           lambda: onehot(x["rf8"], x["kvox"].to(torch.int64), x["wt4"], 2,
+                          True, 1),
+           lambda: launch_onehot(x["rf8"], x["kvox"], x["wt4"], 0, True, 1)]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+    before = build.LAUNCHES["micro_onehot"]
+    with pytest.raises(RuntimeError, match="micro_onehot"):
+        launch_onehot(rf16, x["kvox"], x["wt4"], 2, True, 1)
+    assert build.LAUNCHES["micro_onehot"] == before
 
 
 @pytest.mark.parametrize("out_dtype", [torch.int32, torch.float32])
