@@ -122,6 +122,21 @@ line:
               path B beside its stages' CUDA-event times; then a trace of
               phase 3's demodulate and of its FIR calls, their device time
               per launch onto their rows.
+  8. stream   the Quickstart and paths A and B through
+              runtime/streaming.StreamingSession on
+              Beamformer(device="cuda"), after a warm-up: 20 frames of four
+              point-target variants; each kernel once per frame, 20 new
+              stats rows, each frame equal to push_data_with_compute of
+              its raw frame (NRMSE 1e-6; the count bit for bit is printed)
+              with its peak within one voxel of the target; prints
+              streamed ms/frame (first submit to drain over 20) beside the
+              synchronous end to end and device ms/frame of the same
+              process, with the card's name and power limit; then a traced
+              burst of Quickstart frames (utils/profiling.device_time): busy
+              share and the ms of copy that overlap a kernel, which must
+              not be 0.  For each path also the parts alone: the host copy
+              of one raw frame into a pinned slot (host clock) and its
+              upload (CUDA events).
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1200,7 +1215,9 @@ def target_world(params, voxel) -> np.ndarray:
     return (vt @ np.array([*u, 1.0]))[:3]
 
 
-def phase_main(dev) -> dict:
+def quickstart():
+    """The Quickstart's parameters, pipeline, point-target frame and the
+    target's voxel."""
     from ogl_beamforming_tpu_torch.models import presets
     from ogl_beamforming_tpu_torch.ops import decode
 
@@ -1214,11 +1231,17 @@ def phase_main(dev) -> dict:
         float(params.xdc_element_pitch[0]), target_world(params, voxel),
         params.demodulation_frequency,
         decode.hadamard_matrix(a, "cpu").numpy())
+    return params, pipe, raw, voxel
+
+
+def phase_main(dev) -> dict:
+    params, pipe, raw, voxel = quickstart()
     return drive("main", dev, params, pipe, raw, voxel,
                  ("decode_hadamard", "das_forces"))
 
 
-def phase_main_rca(dev) -> dict:
+def plane_wave():
+    """Path A's parameters, pipeline, point-target frame and voxel."""
     from ogl_beamforming_tpu_torch import DataKind
     from ogl_beamforming_tpu_torch.models import presets
 
@@ -1229,6 +1252,11 @@ def phase_main_rca(dev) -> dict:
         params.channel_count, params.sample_count, params.sampling_frequency,
         params.speed_of_sound, float(params.xdc_element_pitch[0]),
         target_world(params, voxel), params.demodulation_frequency)
+    return params, pipe, raw, voxel
+
+
+def phase_main_rca(dev) -> dict:
+    params, pipe, raw, voxel = plane_wave()
     return drive("main_rca", dev, params, pipe, raw, voxel, ("das_rca",))
 
 
@@ -1249,10 +1277,11 @@ def path_b():
     return params, pipe, [(0, fp)]
 
 
-def phase_main_demod(dev) -> dict:
+def path_b_frame():
+    """Path B's point-target frame and the target's voxel."""
     from ogl_beamforming_tpu_torch.ops import decode
 
-    params, pipe, filters = path_b()
+    params, _, _ = path_b()
     c, a, s = (params.channel_count, params.acquisition_count,
                params.sample_count)
     voxel = (int(params.output_points[0]) // 2,
@@ -1262,6 +1291,12 @@ def phase_main_demod(dev) -> dict:
         float(params.xdc_element_pitch[0]), target_world(params, voxel),
         params.demodulation_frequency,
         decode.hadamard_matrix(a, "cpu").numpy())
+    return raw, voxel
+
+
+def phase_main_demod(dev) -> dict:
+    params, pipe, filters = path_b()
+    raw, voxel = path_b_frame()
     return drive("main_demod", dev, params, pipe, raw, voxel,
                  ("demodulate", "decode_hadamard", "das_forces"),
                  filters=filters)
@@ -1909,6 +1944,163 @@ def phase_trace(dev) -> None:
                   host_ms(lambda: batch(raw)))
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: streaming.  The Quickstart and paths A and B through
+# runtime/streaming.StreamingSession on Beamformer(device="cuda"): a pinned
+# host ring, uploads on a side stream into a device ring, the channel
+# mapping on the device, compute on the default stream.
+
+STREAM_FRAMES = 20    # streamed frames per path, counted and timed
+STREAM_VARIANTS = 4   # distinct raw frames, submitted in turn
+STREAM_BURST = 6      # Quickstart frames in the traced burst
+STREAM_TIMEOUT = 300  # seconds for a drain or a handle
+
+
+def stream_variants(raw) -> list:
+    """STREAM_VARIANTS raw frames with ``raw``'s target: the sign alternates
+    and variant k zeroes raw channel k, so a frame read from another slot of
+    a ring of 1-3 does not equal its own synchronous frame."""
+    out = []
+    for k in range(STREAM_VARIANTS):
+        v = raw.copy() if k % 2 == 0 else -raw
+        v[k] = 0
+        out.append(v)
+    return out
+
+
+def frame_ms(bf, first: int, count: int) -> list:
+    """Device ms of stats rows ``first`` .. ``first + count`` (frame
+    indices; the table keeps the newest STATS_FRAME_WINDOW)."""
+    from ogl_beamforming_tpu_torch.params.constants import STATS_FRAME_WINDOW
+    stages = len(bf._blocks[0]._plan.descriptor.stages)
+    times = bf.compute_timings().times
+    rows = [times[i % STATS_FRAME_WINDOW, :stages] for i in
+            range(first, first + count)]
+    check(count <= STATS_FRAME_WINDOW and all((r > 0).all() for r in rows),
+          f"stats rows {first}..{first + count} lack stage times")
+    return [float(r.sum()) * 1e3 for r in rows]
+
+
+def stream_path(label, dev, params, pipe, raw, target_voxel, kernels,
+                filters=(), trace=False) -> None:
+    """The synchronous frames of the STREAM_VARIANTS raw frames (the
+    references) and RUNS timed ones, then a warm-up through a
+    StreamingSession and STREAM_FRAMES streamed frames with the launch
+    counts set to 0 just before and read just after: each kernel once per
+    frame, one new stats row per frame, each frame equal to the
+    synchronous frame of its raw frame (NRMSE 1e-6; prints whether bit for
+    bit) with its peak within one voxel of the target.  ``trace``: a traced
+    burst of STREAM_BURST frames, whose copies must overlap kernels."""
+    from ogl_beamforming_tpu_torch.kernels import build
+    from ogl_beamforming_tpu_torch.runtime.streaming import StreamingSession
+    from ogl_beamforming_tpu_torch.utils.profiling import device_time
+
+    bf = beamformer(dev, params, pipe.shaders, pipe.data_kind, filters)
+    variants = stream_variants(raw)
+    bf.warmup()
+    refs = [bf.push_data_with_compute(v).data.clone() for v in variants]
+    torch.cuda.synchronize()
+    first = bf.stats._frame_index
+    wall = []
+    for _ in range(RUNS):
+        t0 = time.perf_counter()
+        bf.push_data_with_compute(raw)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    sync_dev = statistics.median(frame_ms(bf, first, RUNS))
+
+    with StreamingSession(bf) as stream:
+        for v in variants:                    # the rings' first allocation
+            stream.submit(v)
+        stream.drain(timeout=STREAM_TIMEOUT)
+        build.LAUNCHES.clear()
+        first = bf.stats._frame_index
+        t0 = time.perf_counter()
+        handles = [stream.submit(variants[i % STREAM_VARIANTS])
+                   for i in range(STREAM_FRAMES)]
+        stream.drain(timeout=STREAM_TIMEOUT)
+        streamed = (time.perf_counter() - t0) * 1e3 / STREAM_FRAMES
+        launches = {k: build.LAUNCHES[k] for k in kernels}
+        rows = bf.stats._frame_index - first
+        check(all(n == STREAM_FRAMES for n in launches.values()),
+              f"{label}: kernel launch counts {launches} != "
+              f"{STREAM_FRAMES} streamed frames")
+        check(rows == STREAM_FRAMES, f"{label}: {rows} new stats rows, "
+              f"expected {STREAM_FRAMES}")
+        stream_dev = statistics.median(frame_ms(bf, first, STREAM_FRAMES))
+
+        shape = grid_shape(params)
+        worst, exact = 0.0, 0
+        for i, h in enumerate(handles):
+            frame = h.result(timeout=STREAM_TIMEOUT)
+            ref = refs[i % STREAM_VARIANTS]
+            check(tuple(frame.data.shape) == shape,
+                  f"{label}: streamed frame {i} shape "
+                  f"{tuple(frame.data.shape)} != {shape}")
+            exact += bool(torch.equal(frame.data, ref))
+            img = frame.to_numpy()
+            worst = max(worst, nrmse(ref.cpu().numpy(), img))
+            peak_check(f"{label} streamed frame {i}", img, target_voxel)
+        check(worst <= 1e-6, f"{label}: streamed frame vs "
+              f"push_data_with_compute NRMSE {worst:.3e} > 1e-6")
+        print(f"[stream {label}] {STREAM_FRAMES} frames, depth "
+              f"{stream.depth}: launches {launches}; {rows} new stats rows; "
+              f"each frame vs push_data_with_compute of its raw frame: "
+              f"{exact} of {STREAM_FRAMES} bit for bit, NRMSE <= "
+              f"{worst:.3e}; peaks within one voxel of {target_voxel}")
+        print(f"[stream {label}] streamed {streamed:.3f} ms/frame (host "
+              f"clock, first submit to drain / {STREAM_FRAMES}); synchronous "
+              f"end to end {statistics.median(wall):.3f} ms/frame (median "
+              f"host clock); device ms/frame {sync_dev:.3f} synchronous, "
+              f"{stream_dev:.3f} streamed (median CUDA events)")
+
+        # the candidate bounds by themselves: the host copy of the raw
+        # frame into a pinned slot and that slot's upload
+        src = torch.from_numpy(raw)
+        slot = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        buf = torch.empty(src.shape, dtype=src.dtype, device=dev)
+        pin = host_ms(lambda: slot.copy_(src))
+        up = median_ms(lambda: buf.copy_(slot, non_blocking=True), RUNS)
+        print(f"[stream {label}] parts alone: host copy of the "
+              f"{src.numel() * src.element_size() / 1e6:.1f} MB raw frame "
+              f"into a pinned slot {pin:.3f} ms (median host clock, "
+              f"{torch.get_num_threads()} threads), its upload {up:.3f} ms "
+              f"(median CUDA events)")
+
+        if trace:
+            def burst():
+                hs = [stream.submit(variants[i % STREAM_VARIANTS])
+                      for i in range(STREAM_BURST)]
+                stream.drain(timeout=STREAM_TIMEOUT)
+                return hs[-1].result(timeout=STREAM_TIMEOUT).data
+
+            prof = device_time(burst)
+            overlap = prof.copy_overlap_seconds * 1e3
+            print(f"[stream {label}] traced burst of {STREAM_BURST} frames: "
+                  f"{prof.kernel_count} kernels, kernel time "
+                  f"{prof.module_seconds * 1e3:.3f} ms, copies "
+                  f"{prof.copy_seconds * 1e3:.3f} ms ({len(prof.copy_spans)}"
+                  f"), traced window {prof.window_seconds * 1e3:.3f} ms -> "
+                  f"busy share {prof.busy_share:.4f}; copy under a kernel "
+                  f"{overlap:.3f} ms")
+            check(overlap > 0, f"{label}: no copy overlapped a kernel in "
+                  f"the traced burst")
+
+
+def phase_stream(dev, smi_line) -> None:
+    params, pipe, filters = path_b()
+    raw, voxel = path_b_frame()
+    print(f"[stream] {smi_line}")
+    params_a, pipe_a, raw_a, voxel_a = plane_wave()
+    stream_path("path A", dev, params_a, pipe_a, raw_a, voxel_a,
+                ("das_rca",))
+    stream_path("path B", dev, params, pipe, raw, voxel,
+                ("demodulate", "decode_hadamard", "das_forces"),
+                filters=filters)
+    params, pipe, raw, voxel = quickstart()
+    stream_path("Quickstart", dev, params, pipe, raw, voxel,
+                ("decode_hadamard", "das_forces"), trace=True)
+
+
 def main() -> None:
     name, smi_line = phase_device()
     dev = torch.device("cuda", 0)
@@ -1930,6 +2122,7 @@ def main() -> None:
     rows += phase_micro(dev, smi_line)
     phase_trace(dev)
     phase_filter_traces()
+    phase_stream(dev, smi_line)
     for row in rows:
         check(row["launches"] > 0, f"{row['name']} never launched on its path")
     print(json.dumps({"kernels": rows}))

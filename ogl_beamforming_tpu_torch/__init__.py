@@ -23,7 +23,8 @@ Layout:
   ops/       filtering, decode, DAS (plain twins + kernel dispatch),
              coherency; golden (copy)
   pipeline/  plan builder and the Beamformer executor
-  runtime/   host RF preparation (copy)
+  runtime/   RF preparation on the host (copy) and on the device; the
+             streaming session
   models/    presets (copy)
   convert.py the JAX package's parameters and plan parameters -> this
              package's

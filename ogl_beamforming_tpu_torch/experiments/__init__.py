@@ -245,7 +245,7 @@ def launch_gather(variant_id: int, src, src2, idx, w, reps: int, steps: int,
         idx.data_ptr(), w.data_ptr(), out.data_ptr(), reps, steps,
         torch.cuda.current_stream(src.device).cuda_stream)
     build.check("micro_gather", code)
-    build.LAUNCHES["micro_gather"] += 1
+    build.count_launch("micro_gather")
     return out
 
 
@@ -264,7 +264,7 @@ def launch_gather_hermite(k8: bool, src, src2, idx, w, units: int,
         w.data_ptr(), out.data_ptr(), units, steps,
         torch.cuda.current_stream(src.device).cuda_stream)
     build.check("micro_gather_hermite", code)
-    build.LAUNCHES["micro_gather"] += 1
+    build.count_launch("micro_gather")
     return out
 
 
@@ -354,7 +354,7 @@ def launch_onehot(rf, k, wt, units: int, k8: bool, steps: int):
         out.data_ptr(), units, steps,
         torch.cuda.current_stream(rf.device).cuda_stream)
     build.check("micro_onehot", code)
-    build.LAUNCHES["micro_onehot"] += 1
+    build.count_launch("micro_onehot")
     return out
 
 

@@ -110,7 +110,7 @@ def k(body: str, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     build.check("micro_i8_elementwise", build.library().micro_i8_elementwise(
         _ELEMENTWISE[body], h.data_ptr(), x.data_ptr(), out.data_ptr(), a,
         bs, torch._C._cuda_getCurrentRawStream(x.device.index)))
-    build.LAUNCHES["micro_i8"] += 1
+    build.count_launch("micro_i8")
     return out
 
 

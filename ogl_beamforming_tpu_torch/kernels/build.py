@@ -11,7 +11,8 @@ flags, and is built at first use: the first call of a kernel wrapper (or
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
 Each kernel wrapper adds one to its entry of :data:`LAUNCHES` where it
-launches its kernel, and nowhere else (the plain twins do not count).
+launches its kernel, and nowhere else (the plain twins do not count), through
+:func:`count_launch`.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -38,6 +40,16 @@ LAUNCHES: collections.Counter = collections.Counter()
 of four frames of a batch), ``demodulate``, ``fir``, and the
 microbenchmarks' ``micro_gather`` (K5-K7 and the gather bundle of K8-K9),
 ``micro_onehot`` (K8-K9) and ``micro_i8`` (K10-K11)."""
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one to ``LAUNCHES[name]``, under a lock: a streaming session's
+    worker thread launches kernels beside the caller's thread."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

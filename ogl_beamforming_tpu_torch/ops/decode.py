@@ -85,7 +85,7 @@ def decode_hadamard_cuda(rf: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     code = getattr(lib, entry)(rf.data_ptr(), h8.data_ptr(), out.data_ptr(),
                                c, a, s, float(_inv_order(a)), stream)
     build.check(entry, code)
-    build.LAUNCHES["decode_hadamard"] += 1
+    build.count_launch("decode_hadamard")
     if cplx:
         out = torch.view_as_complex(out.view(c, a, s // 2, 2))
     return out

@@ -6,6 +6,10 @@ backlog with N-most-recent export, and the exported compute-timing stats
 table, on one explicit device.  Each frame's stages run eagerly and are
 bracketed by CUDA events (on the GPU) or host clock reads (on the CPU, where
 torch runs synchronously), so the stats table holds true per-stage times.
+A frame is enqueued (:meth:`Beamformer._enqueue`) and its times read once
+its last event has completed (:meth:`Beamformer._finish`): the synchronous
+path does both in turn, the streaming session (``runtime/streaming.py``)
+reads frame n's times while frame n + 1 runs.
 :meth:`Beamformer.push_batch` beamforms B frames per call through a batched
 plan, and :meth:`Beamformer.averaged_frame` averages the newest frames.
 """
@@ -22,11 +26,12 @@ import torch
 from ..params.constants import (FILTER_SLOTS, MAX_CHANNEL_COUNT,
                                 MAX_EMISSIONS_COUNT, MAX_PARAMETER_BLOCKS)
 from ..params.enums import (BeamformerError, ContrastMode, ErrorKind,
-                            ViewPlaneTag)
+                            LiveImagingDirtyFlags, ViewPlaneTag)
 from ..params.types import (FilterParameters, LiveImagingParameters,
                             Parameters, SimpleParameters)
 from ..ops.display import sum_frames
-from ..runtime.upload import prepare_rf
+from ..runtime.upload import (mapping_rows, prepare_rf, prepare_rf_device,
+                              raw_columns)
 from ..utils.device import resolve_device, to_host
 from ..utils.filters import Filter, make_filter
 from .plan import CompiledPlan, build_plan
@@ -78,6 +83,9 @@ class ParameterBlock:
     dirty: bool = True
     _plan: CompiledPlan | None = None
     _batched_plans: dict = field(default_factory=dict)   # frame_batch -> plan
+    # ((mapping bytes, raw channels), the mapping's raw rows as an int64
+    # tensor on the device) for the device-side ingest
+    _rows: tuple | None = None
 
     def mark_dirty(self):
         self.dirty = True
@@ -99,6 +107,10 @@ class _StageClock:
             self.marks.append(event)
         else:
             self.marks.append(time.perf_counter())
+
+    def done(self) -> bool:
+        """Whether the last stage has completed (without waiting)."""
+        return not self.cuda or self.marks[-1].query()
 
     def seconds(self) -> list[float]:
         """Seconds per stage; waits for the last stage on the GPU."""
@@ -130,7 +142,9 @@ class Beamformer:
         self.stats = ComputeStats()
         self.live_parameters = LiveImagingParameters()
         self._live_dirty = 0
-        # Guards frame-id allocation, the backlog and the stats table.
+        self._stop_latch = False
+        # Guards frame-id allocation, the backlog and the stats table:
+        # a streaming session records frames from its worker thread.
         self._frame_lock = threading.RLock()
 
     # ------------------------------------------------------------------
@@ -257,6 +271,29 @@ class Beamformer:
         self.stats.record_rf_upload()
         return self._compute(rf, image_plane_tag, block)
 
+    def _raw_columns(self, b: ParameterBlock, shape: tuple) -> int:
+        """Host-side check of a raw frame's shape for the device ingest
+        (the errors of :meth:`_prepare`); the raw columns it reads."""
+        p = b.parameters
+        return raw_columns(shape, b.channel_mapping, p.channel_count,
+                           p.acquisition_count, p.sample_count,
+                           ContrastMode(p.contrast_mode),
+                           b.pipeline.data_kind)
+
+    def _ingest(self, b: ParameterBlock, raw: torch.Tensor) -> torch.Tensor:
+        """:meth:`_prepare` of a raw frame on the device (checked by
+        :meth:`_raw_columns`), with the block's channel mapping kept there."""
+        p = b.parameters
+        key = (b.channel_mapping[:p.channel_count].tobytes(), raw.shape[0])
+        if b._rows is None or b._rows[0] != key:
+            rows = mapping_rows(b.channel_mapping, p.channel_count,
+                                raw.shape[0])
+            b._rows = (key, torch.from_numpy(rows).to(raw.device))
+        return prepare_rf_device(raw, b._rows[1], p.channel_count,
+                                 p.acquisition_count, p.sample_count,
+                                 ContrastMode(p.contrast_mode),
+                                 b.pipeline.data_kind)
+
     @staticmethod
     def _prepare(b: ParameterBlock, data) -> np.ndarray:
         p = b.parameters
@@ -332,15 +369,27 @@ class Beamformer:
         return self.push_data_with_compute(raw, block=block)
 
     def _compute(self, rf: np.ndarray, image_plane_tag, block) -> Frame:
-        b = self._block(block)
-        plan = self._ensure_plan(b)
+        plan = self._ensure_plan(self._block(block))
         x = torch.from_numpy(np.ascontiguousarray(rf)).to(self.device)
+        frame, clock = self._enqueue(plan, x, image_plane_tag)
+        self._finish(clock)
+        return frame
+
+    def _enqueue(self, plan: CompiledPlan, x: torch.Tensor,
+                 image_plane_tag) -> tuple[Frame, _StageClock]:
+        """Run ``plan`` on canonical RF ``x`` on the device and register the
+        frame; on the GPU it returns once the stages are enqueued.  The
+        clock's times go into the stats table through :meth:`_finish`."""
         clock = _StageClock(self.device)
         out = plan(x, mark=clock.mark)
+        return self._register_frame(out, ViewPlaneTag(image_plane_tag)), clock
+
+    def _finish(self, clock: _StageClock):
+        """Record an enqueued frame's stage times as a stats row (waits for
+        its last stage on the GPU)."""
         stage_times = clock.seconds()
         with self._frame_lock:
             self.stats.record_frame(stage_times)
-        return self._register_frame(out, ViewPlaneTag(image_plane_tag))
 
     def profile_device_stages(self, rf: np.ndarray, block: int = 0,
                               record: bool = False):
@@ -456,6 +505,13 @@ class Beamformer:
                             dirty_flags: int = 0):
         self.live_parameters = params
         self._live_dirty |= dirty_flags
+        # Latch StopImaging so the control is not lost when a polling
+        # client consumes the dirty flag before a session checks it.
+        if dirty_flags & LiveImagingDirtyFlags.StopImaging \
+                and not params.active:
+            self._stop_latch = True
+        elif params.active:
+            self._stop_latch = False
 
     def get_live_parameters(self) -> LiveImagingParameters:
         return self.live_parameters

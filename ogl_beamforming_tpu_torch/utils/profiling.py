@@ -51,6 +51,10 @@ class DeviceProfile:
     kernels: list = field(default_factory=list)
     # host annotation (``torch.profiler.record_function``) name -> time, us
     annotations: dict = field(default_factory=dict)
+    # (device start in us, seconds) of each kernel and of each copy or
+    # memset, in trace order
+    kernel_spans: list = field(default_factory=list)
+    copy_spans: list = field(default_factory=list)
 
     @property
     def kernel_count(self) -> int:
@@ -65,6 +69,24 @@ class DeviceProfile:
         """Kernel time over the host-clock window (0.0 without a window)."""
         return (self.module_seconds / self.window_seconds
                 if self.window_seconds > 0 else 0.0)
+
+    @property
+    def copy_overlap_seconds(self) -> float:
+        """Seconds of copy during which a kernel ran: each copy's time
+        inside the union of the kernels' spans, summed over copies."""
+        merged: list[list[float]] = []
+        for start, dur in sorted(self.kernel_spans):
+            end = start + dur * 1e6
+            if merged and start <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], end)
+            else:
+                merged.append([start, end])
+        overlap_us = 0.0
+        for start, dur in self.copy_spans:
+            end = start + dur * 1e6
+            for k_start, k_end in merged:
+                overlap_us += max(0.0, min(end, k_end) - max(start, k_start))
+        return overlap_us * 1e-6
 
     def split(self, marks: list[str]) -> list[float]:
         """Kernel seconds between consecutive annotations: segment ``i``
@@ -114,6 +136,8 @@ def _parse_trace(logdir: str) -> DeviceProfile:
     copy_us = 0.0
     op_us: dict = {}
     kernels = []
+    kernel_spans = []
+    copy_spans = []
     for e in events:
         cat = str(e.get("cat", "")).lower()
         dur = float(e.get("dur", 0.0))
@@ -122,12 +146,15 @@ def _parse_trace(logdir: str) -> DeviceProfile:
             op_us[e["name"]] = op_us.get(e["name"], 0.0) + dur
             corr = (e.get("args") or {}).get("correlation")
             kernels.append((e["name"], launched.get(corr), dur * 1e-6))
+            kernel_spans.append((float(e["ts"]), dur * 1e-6))
         elif cat in _COPIES:
             copy_us += dur
+            copy_spans.append((float(e["ts"]), dur * 1e-6))
     return DeviceProfile(module_seconds=kernel_us * 1e-6,
                          op_seconds={k: v * 1e-6 for k, v in op_us.items()},
                          copy_seconds=copy_us * 1e-6, kernels=kernels,
-                         annotations=annotations)
+                         annotations=annotations, kernel_spans=kernel_spans,
+                         copy_spans=copy_spans)
 
 
 def _activities() -> list:

@@ -885,3 +885,139 @@ def test_profile_device_stages_on_the_card(dev):
     times = bf.profile_device_stages(rf, record=True)
     assert [k for k, _ in times] == [ShaderKind.Decode, ShaderKind.DAS]
     assert all(t > 0.0 for _, t in times)
+
+
+# --- the streaming session (runtime/streaming.py) and the device ingest ---
+
+def _stream_bf(dev, sample_count=256, points=(12, 16)):
+    """[Decode, DAS] FORCES cubic on int16, 8 channels read from 10 raw
+    rows in another order."""
+    from ogl_beamforming_tpu_torch.params.enums import ContrastMode
+    p = Parameters(
+        sample_count=sample_count, channel_count=8, acquisition_count=4,
+        sampling_frequency=20e6, demodulation_frequency=5e6,
+        speed_of_sound=1500.0, f_number=0.8,
+        acquisition_kind=AcquisitionKind.FORCES,
+        interpolation_mode=InterpolationMode.Cubic,
+        contrast_mode=ContrastMode.NoContrast,
+        das_voxel_transform=_das_params(
+            "forces", InterpolationMode.Cubic, False).voxel_transform,
+        xdc_element_pitch=np.array([PITCH, PITCH], np.float32),
+        output_points=np.array([*points, 1, 0], np.int32))
+    bf = Beamformer(device=dev)
+    bf.push_parameters(p)
+    bf.push_pipeline([ShaderKind.Decode, ShaderKind.DAS], DataKind.Int16)
+    bf.push_channel_mapping([9, 0, 4, 2, 7, 1, 8, 3])
+    return bf
+
+
+def _stream_raws(n, sample_count=256, seed=30):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(-1024, 1024, (10, 4 * sample_count + 13),
+                         dtype=np.int16) for _ in range(n)]
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_streamed_frames_equal_synchronous(dev, depth):
+    """Six frames through a session on the card: pinned host slots, a side
+    stream, each kernel once per frame, a stats row per frame, each frame
+    bit for bit the synchronous frame of its raw frame."""
+    from ogl_beamforming_tpu_torch.runtime.streaming import StreamingSession
+    bf = _stream_bf(dev)
+    raws = _stream_raws(6)
+    refs = [bf.push_data_with_compute(r).data.clone() for r in raws]
+    first = bf.stats._frame_index
+    build.LAUNCHES.clear()
+    with StreamingSession(bf, depth=depth) as stream:
+        handles = [stream.submit(r) for r in raws]
+        stream.drain(timeout=120)
+        frames = [h.result(timeout=120) for h in handles]
+        ring = stream._ring
+        assert len(ring.host) == len(ring.dev) == depth
+        assert all(t.is_pinned() for t in ring.host)
+        assert all(t.is_cuda for t in ring.dev)
+        assert stream._side != torch.cuda.default_stream(dev)
+    assert build.LAUNCHES["decode_hadamard"] == build.LAUNCHES[
+        "das_forces"] == 6
+    assert bf.stats._frame_index - first == 6
+    assert (bf.compute_timings().times[first:first + 6, :2] > 0).all()
+    for frame, ref in zip(frames, refs):
+        assert frame.data.is_cuda and torch.equal(frame.data, ref)
+
+
+def test_streaming_plan_rebuilt_midstream_on_the_card(dev):
+    """A parameter push between frames rebuilds the plan; a new sample
+    count resizes the rings.  Each frame equals the synchronous frame under
+    its own parameters."""
+    from ogl_beamforming_tpu_torch.runtime.streaming import StreamingSession
+    bf = _stream_bf(dev)
+    new = _stream_bf(dev, sample_count=128, points=(10, 6))
+    before, after = _stream_raws(3), _stream_raws(3, 128, seed=31)
+    refs = [bf.push_data_with_compute(r).data.clone() for r in before] + [
+        new.push_data_with_compute(r).data.clone() for r in after]
+    with StreamingSession(bf) as stream:
+        handles = [stream.submit(r) for r in before]
+        stream.flush(timeout=120)
+        key = stream._ring.key
+        bf.push_parameters(new._blocks[0].parameters)
+        handles += [stream.submit(r) for r in after]
+        stream.drain(timeout=120)
+        assert stream._ring.key != key
+        frames = [h.result(timeout=120) for h in handles]
+    for frame, ref in zip(frames, refs):
+        assert torch.equal(frame.data, ref)
+
+
+def test_frames_read_on_the_main_thread_while_the_worker_runs(dev):
+    """``frame.to_numpy()`` on the caller's thread, on the default stream,
+    while the worker enqueues later frames: each equals its synchronous
+    frame."""
+    from ogl_beamforming_tpu_torch.runtime.streaming import StreamingSession
+    bf = _stream_bf(dev)
+    raws = _stream_raws(4)
+    refs = [bf.push_data_with_compute(r).to_numpy() for r in raws]
+    with StreamingSession(bf) as stream:
+        handles = [stream.submit(raws[i % 4]) for i in range(16)]
+        for i, h in enumerate(handles):
+            np.testing.assert_array_equal(h.result(timeout=120).to_numpy(),
+                                          refs[i % 4])
+        stream.drain(timeout=120)
+
+
+def test_streaming_error_reaches_the_handle_on_the_card(dev):
+    from ogl_beamforming_tpu_torch import BeamformerError
+    from ogl_beamforming_tpu_torch.runtime.streaming import StreamingSession
+    bf = _stream_bf(dev)
+    with StreamingSession(bf) as stream:
+        bad = stream.submit(np.zeros((10, 7), np.int16))
+        good = stream.submit(_stream_raws(1)[0])
+        with pytest.raises(BeamformerError):
+            bad.result(timeout=120)
+        assert good.result(timeout=120).data.is_cuda
+
+
+@pytest.mark.parametrize("mapping", ["identity", "subset"])
+@pytest.mark.parametrize("a1s2", [False, True])
+@pytest.mark.parametrize("dtype", [np.int16, np.float16, np.float32])
+def test_device_ingest_on_the_card_equals_prepare_rf(dev, dtype, a1s2,
+                                                      mapping):
+    from ogl_beamforming_tpu_torch.params.enums import ContrastMode
+    from ogl_beamforming_tpu_torch.runtime import upload
+    rng = np.random.default_rng(40)
+    c, a, s = 6, 4, 100
+    rows = 6 if mapping == "identity" else 9
+    m = (np.arange(6) if mapping == "identity"
+         else rng.choice(9, 6, replace=False)).astype(np.int16)
+    if dtype == np.int16:
+        raw = rng.integers(-32768, 32768, (rows, a * s + 5)).astype(dtype)
+    else:
+        raw = (rng.standard_normal((rows, a * s + 5)) * 1000).astype(dtype)
+    args = (c, a, s, ContrastMode.A1S2 if a1s2 else ContrastMode.NoContrast,
+            DataKind.Int16)
+    cols = upload.raw_columns(raw.shape, m, *args)
+    out = upload.prepare_rf_device(
+        torch.from_numpy(raw).to(dev)[:, :cols],
+        torch.from_numpy(upload.mapping_rows(m, c, rows)).to(dev), *args)
+    assert out.is_cuda
+    assert out.cpu().numpy().tobytes() == upload.prepare_rf(raw, m,
+                                                            *args).tobytes()

@@ -66,6 +66,32 @@ def test_parse_trace_sums_kernels_by_name(tmp_path):
     assert prof.top_ops[0][0] == "das_forces_kernel"
 
 
+def test_copy_overlap_counts_copy_time_under_kernels(tmp_path):
+    """Each copy's time inside the union of the kernels' device spans: two
+    kernels that overlap count once, a copy across two kernels counts
+    both parts, a copy on an idle card counts nothing."""
+    events = [
+        {"ph": "X", "cat": "kernel", "name": "a", "ts": 10.0, "dur": 100.0},
+        {"ph": "X", "cat": "kernel", "name": "b", "ts": 105.0, "dur": 45.0},
+        {"ph": "X", "cat": "kernel", "name": "c", "ts": 300.0, "dur": 20.0},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD (Pinned -> "
+         "Device)", "ts": 0.0, "dur": 20.0},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD (Pinned -> "
+         "Device)", "ts": 140.0, "dur": 170.0},
+        {"ph": "X", "cat": "gpu_memset", "name": "Memset (Device)",
+         "ts": 400.0, "dur": 10.0},
+    ]
+    _write_trace(str(tmp_path), events)
+    prof = _parse_trace(str(tmp_path))
+    np.testing.assert_allclose(
+        np.array(prof.kernel_spans),
+        [(10.0, 100e-6), (105.0, 45e-6), (300.0, 20e-6)], rtol=0, atol=1e-12)
+    assert [s for s, _ in prof.copy_spans] == [0.0, 140.0, 400.0]
+    # 10 us of the first copy, 10 + 10 us of the second, none of the memset
+    assert abs(prof.copy_overlap_seconds - 30e-6) < 1e-12
+    assert DeviceProfile(0.0, {}).copy_overlap_seconds == 0.0
+
+
 def test_parse_trace_without_a_trace_raises(tmp_path):
     with pytest.raises(RuntimeError, match="no trace"):
         _parse_trace(str(tmp_path))
