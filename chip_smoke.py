@@ -95,8 +95,13 @@ line:
               module's sweep, launch counts set to 0 just before and read
               just after (K5, K6: every variant in shared and device
               memory, by CUDA events and by its kernel time in a profiler
-              trace, and each row by the trace with its bound share; K7:
-              the REPS slope of every variant in both; K8 and K9: the
+              trace, and each row by the trace with its bound share, the
+              bound counted from the function (its float adds or
+              multiply-adds at the issue rate, its distinct gathers at 3.1
+              cycles a warp, at the card's highest SM clock), beside what
+              the compiled kernel executes (kernels/sass.gather_loops);
+              K7: the REPS slope of every variant in both, its row also by
+              the trace; K8 and K9: the
               cubic-tap gather bundle and the one-hot product at B = 8, 32,
               128, K8 from the trace, K9 by the UNITS slope, printed as a
               fit). K8 and K9 rows: the one-hot kernel at every B by
@@ -137,6 +142,28 @@ line:
               not be 0.  For each path also the parts alone: the host copy
               of one raw frame into a pinned slot (host clock) and its
               upload (CUDA events).
+  9. serve    the Quickstart at full width through the runtime bridge: a
+              BeamformerServer on the card (runtime/server.py) on a
+              256 MiB shared-memory region of its own (/dev/shm must hold
+              it), driven through the port's native library
+              (runtime/abi.py, built from runtime/native/ at first use) by
+              a ctypes client in this process (each frame through the
+              server's StreamingSession): after a warm-up, 20
+              frames of four point-target variants with
+              beamformer_push_data_with_compute, read back with one
+              beamformer_get_last_frames and the stats with
+              beamformer_compute_timings, the launch counts set to 0 just
+              before; each kernel once per frame, 20 new rows in the
+              client's stats table, every frame equal to
+              push_data_with_compute of its raw frame on the card bit for
+              bit with its peak within one voxel of the target; then one
+              frame from a C client compiled against generated/
+              ogl_beamformer_lib.h and the port's library, in a
+              subprocess, held to the same.  Prints served ms/frame (the
+              client's clock, first push to last export, over 20)
+              beside phase 8's streamed Quickstart,
+              the client's copy into the region and a copy out of it
+              alone, and the card's name and power limit.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1441,6 +1468,56 @@ def gather_ops(steps, reps, ops_per_rep) -> float:
     return float(steps) * reps * 16 * 128 * ops_per_rep
 
 
+# The K5 and K6 bounds counted from the function, at the card's highest SM
+# clock: its float adds (K5 "mod": REPS an element) or multiply-adds (K6
+# "hermite_pair": 4 a bundle, a bundle every second repetition, so 2 REPS
+# an element) at the issue rate of the float pipes (128 a clock an SM; no
+# add is counted against the FMA-counted 67 TFLOP/s), and its distinct
+# gathers (the r & 3 index repeats every four repetitions: K5 4 an
+# element, K6 2 offsets x 2 planes) at 3.1 cycles a warp-wide shared
+# gather at random banks (K7's slope, PR 4); the bound is the larger.  The
+# joining adds of the 8 chains are left out.  PR 4 counted OPS_PER_REP
+# float32 operations per repetition and element at 67 TFLOP/s (K5 "mod"
+# 4, K6 "hermite_pair" 13): the index arithmetic and the gathers of every
+# repetition, where the function needs four gathers an element.  What the
+# compiled kernels execute (kernels/sass.gather_loops, the repetition
+# loop's body and the code outside every loop, experiments.gather_work) is
+# printed beside it as a diagnosis: on the H100 the loops hold adds or
+# multiply-adds alone, no LDS, and the code outside them what the function
+# does not need.
+FLOAT_PER_CLOCK = 128
+LDS_GATHER_CYCLES = 3.1
+GATHER_FUNCTION = {"mod": (1, 4), "hermite_pair": (2, 4)}  # /rep, distinct
+
+
+def gather_bound(label, mod, variant, counts, clock_mhz) -> list:
+    """The bound of ``variant`` of ``mod`` (K5, K6) counted from the
+    function, for :func:`bound`, with the compiled kernel's counts in
+    shared memory and the old count printed beside it."""
+    from ogl_beamforming_tpu_torch.experiments import (LANE, ROWS, WARP,
+                                                       gather_work)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_s = clock_mhz * 1e6 * sms            # SM cycles a second
+    per_rep, distinct = GATHER_FUNCTION[variant]
+    elements = mod.STEPS * ROWS * LANE
+    times = {"float": elements * per_rep * mod.REPS / FLOAT_PER_CLOCK / per_s,
+             "gathers": elements * distinct / WARP * LDS_GATHER_CYCLES / per_s}
+    by = max(times, key=times.get)
+    c = counts[(mod.VARIANT_IDS[variant], True)]
+    work = gather_work(c, mod.REPS, mod.STEPS)
+    old = gather_ops(mod.STEPS, mod.REPS, mod.OPS_PER_REP[variant])
+    print(f"[micro] {label} bound from the function at {clock_mhz:g} MHz x "
+          f"{sms} SMs: {elements} elements x {per_rep * mod.REPS} float "
+          f"adds or multiply-adds and {distinct} distinct gathers -> "
+          + ", ".join(f"{k} {t * 1e3:.5f} ms" for k, t in times.items())
+          + f", set by {by}; the old count {old:.4g} float32 operations at "
+          f"67 TFLOP/s {old / PEAK_F32_PER_S * 1e3:.5f} ms; the compiled "
+          f"kernel (diagnosis): loop body {c['body']} for {c['step']} "
+          f"repetitions a turn, outside every loop {c['outside']}, a launch "
+          f"{work} warp instructions")
+    return [(times[by], 1.0)]
+
+
 def print_gather_launches(label, res) -> None:
     print(f"[micro] {label} (REPS 64, STEPS 512), per launch: kernel us "
           "from the trace / CUDA-event us with the enqueue -> cycles per "
@@ -1460,10 +1537,13 @@ def gather_trace(label, row, fn, smi_line) -> None:
           "by the trace")
 
 
-def phase_micro_gather(dev, smi_line) -> list[tuple[dict, int]]:
+def phase_micro_gather(dev, smi_line, counts,
+                       clock_mhz) -> list[tuple[dict, int]]:
     """K5, K6, K7: every variant in both memory spaces against its plain
     version, the sweeps, and one row each (timed through the launcher, past
-    the wrapper's index check; K5 and K6 also by the trace)."""
+    the wrapper's index check, and by the trace); K5's and K6's bounds from
+    the function at ``clock_mhz``, ``counts`` (kernels/sass.gather_loops)
+    printed beside them."""
     from ogl_beamforming_tpu_torch.experiments import (gather_micro,
                                                        gather_micro2,
                                                        gather_micro3,
@@ -1492,9 +1572,9 @@ def phase_micro_gather(dev, smi_line) -> list[tuple[dict, int]]:
         "mod", x["src"], x["idx"], steps=gather_micro.STEPS), RUNS)
     row = kernel_row(
         "micro_gather_k5", "micro_gather.cu", "experiments/gather_micro.py:56",
-        err, ms, plain, TILE_BYTES, gather_ops(
-            gather_micro.STEPS, gather_micro.REPS,
-            gather_micro.OPS_PER_REP["mod"]), iqr=iqr)
+        err, ms, plain, TILE_BYTES, gather_bound(
+            "K5 mod, shared", gather_micro, "mod", counts, clock_mhz),
+        iqr=iqr)
     gather_trace("K5 mod, shared", row, k5, smi_line)
     out.append((row, n))
 
@@ -1525,8 +1605,8 @@ def phase_micro_gather(dev, smi_line) -> list[tuple[dict, int]]:
     row = kernel_row(
         "micro_gather_k6", "micro_gather.cu",
         "experiments/gather_micro2.py:136", err, ms, plain, TILE_BYTES,
-        gather_ops(gather_micro2.STEPS, gather_micro2.REPS,
-                   gather_micro2.OPS_PER_REP["hermite_pair"]), iqr=iqr)
+        gather_bound("K6 hermite_pair, shared", gather_micro2,
+                       "hermite_pair", counts, clock_mhz), iqr=iqr)
     gather_trace("K6 hermite_pair, shared", row, k6, smi_line)
     out.append((row, n))
 
@@ -1554,17 +1634,20 @@ def phase_micro_gather(dev, smi_line) -> list[tuple[dict, int]]:
               f"(REPS {list(gather_micro3.REPS_SWEEP)}: "
               f"{', '.join(f'{t:.1f}' for t in r['us'])} us)")
     src, src2 = gather_micro3.sources("hermite_pair", x)
-    ms, iqr = kernel_ms(lambda: launch_gather(
+    k7 = lambda: launch_gather(  # noqa: E731
         gather_micro3.VARIANT_IDS["hermite_pair"], src, src2, x["idx"],
-        x["w"], reps, gather_micro3.STEPS, True))
+        x["w"], reps, gather_micro3.STEPS, True)
+    ms, iqr = kernel_ms(k7)
     plain = median_ms(lambda: gather_micro3.kernel_ref(
         "hermite_pair", src, src2, x["idx"], x["w"], reps,
         steps=gather_micro3.STEPS), RUNS)
-    out.append((kernel_row(
+    row = kernel_row(
         "micro_gather_k7", "micro_gather.cu",
         "experiments/gather_micro3.py:105", err, ms, plain, TILE_BYTES,
         gather_ops(gather_micro3.STEPS, reps,
-                   gather_micro3.OPS_PER_REP["hermite_pair"]), iqr=iqr), n))
+                   gather_micro3.OPS_PER_REP["hermite_pair"]), iqr=iqr)
+    gather_trace(f"K7 hermite_pair, shared, REPS {reps}", row, k7, smi_line)
+    out.append((row, n))
     return out
 
 
@@ -1843,9 +1926,10 @@ def phase_micro(dev, smi_line) -> list[dict]:
     from ogl_beamforming_tpu_torch.experiments import (gather_micro,
                                                        gather_micro2,
                                                        gather_micro3,
+                                                       max_sm_clock_mhz,
                                                        sass_loads,
                                                        sm_clock_mhz)
-    from ogl_beamforming_tpu_torch.kernels import build
+    from ogl_beamforming_tpu_torch.kernels import build, sass
     t0 = time.perf_counter()
     names = {}
     for label, mod in (("K5", gather_micro), ("K6", gather_micro2),
@@ -1859,7 +1943,8 @@ def phase_micro(dev, smi_line) -> list[dict]:
                       for (k, sm), (n_lds, n_ldg) in sorted(
                           loads.items(), key=lambda kv: str(kv[0]))))
     clock = sm_clock_mhz()
-    rows = (phase_micro_gather(dev, smi_line)
+    counts = sass.gather_loops(sass.dump(build.library_path()))
+    rows = (phase_micro_gather(dev, smi_line, counts, max_sm_clock_mhz())
             + phase_micro_onehot(dev, smi_line)
             + phase_micro_i8(dev, smi_line))
     for row, n in rows:
@@ -1982,7 +2067,7 @@ def frame_ms(bf, first: int, count: int) -> list:
 
 
 def stream_path(label, dev, params, pipe, raw, target_voxel, kernels,
-                filters=(), trace=False) -> None:
+                filters=(), trace=False) -> float:
     """The synchronous frames of the STREAM_VARIANTS raw frames (the
     references) and RUNS timed ones, then a warm-up through a
     StreamingSession and STREAM_FRAMES streamed frames with the launch
@@ -1990,7 +2075,8 @@ def stream_path(label, dev, params, pipe, raw, target_voxel, kernels,
     frame, one new stats row per frame, each frame equal to the
     synchronous frame of its raw frame (NRMSE 1e-6; prints whether bit for
     bit) with its peak within one voxel of the target.  ``trace``: a traced
-    burst of STREAM_BURST frames, whose copies must overlap kernels."""
+    burst of STREAM_BURST frames, whose copies must overlap kernels.
+    Returns the streamed ms/frame."""
     from ogl_beamforming_tpu_torch.kernels import build
     from ogl_beamforming_tpu_torch.runtime.streaming import StreamingSession
     from ogl_beamforming_tpu_torch.utils.profiling import device_time
@@ -2084,9 +2170,11 @@ def stream_path(label, dev, params, pipe, raw, target_voxel, kernels,
                   f"{overlap:.3f} ms")
             check(overlap > 0, f"{label}: no copy overlapped a kernel in "
                   f"the traced burst")
+    return streamed
 
 
-def phase_stream(dev, smi_line) -> None:
+def phase_stream(dev, smi_line) -> float:
+    """Phase 8; returns the Quickstart's streamed ms/frame."""
     params, pipe, filters = path_b()
     raw, voxel = path_b_frame()
     print(f"[stream] {smi_line}")
@@ -2097,8 +2185,254 @@ def phase_stream(dev, smi_line) -> None:
                 ("demodulate", "decode_hadamard", "das_forces"),
                 filters=filters)
     params, pipe, raw, voxel = quickstart()
-    stream_path("Quickstart", dev, params, pipe, raw, voxel,
-                ("decode_hadamard", "das_forces"), trace=True)
+    return stream_path("Quickstart", dev, params, pipe, raw, voxel,
+                       ("decode_hadamard", "das_forces"), trace=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the Quickstart served through the runtime bridge: a
+# BeamformerServer on the card (runtime/server.py) on a shared-memory region
+# of its own, driven through the port's native library (runtime/abi.py) by
+# a client in this process, as an external C or MATLAB program drives it,
+# and by a compiled C client in a subprocess.
+
+SERVE_FRAMES = 20               # served frames, counted and timed
+SERVE_SHM_BYTES = 256 << 20     # the 134.2 MB raw frame, then 20 exports
+SERVE_TIMEOUT_MS = 120_000      # the client library's timeout a call
+C_CLIENT = r"""
+#include "ogl_beamformer_lib.h"
+#include <stdio.h>
+#include <stdlib.h>
+
+/* argv: simple parameters (the struct's bytes), raw frame, output file */
+static void *slurp(const char *path, size_t *size) {
+    FILE *f = fopen(path, "rb");
+    if (!f) return 0;
+    fseek(f, 0, SEEK_END);
+    *size = (size_t)ftell(f);
+    fseek(f, 0, SEEK_SET);
+    void *p = malloc(*size);
+    if (p && fread(p, 1, *size, f) != *size) { free(p); p = 0; }
+    fclose(f);
+    return p;
+}
+
+int main(int argc, char **argv) {
+    if (argc != 4 || beamformer_get_api_version() != 34) return 2;
+    size_t n_sp = 0, n_raw = 0;
+    BeamformerSimpleParameters *sp = slurp(argv[1], &n_sp);
+    void *raw = slurp(argv[2], &n_raw);
+    if (!sp || !raw || n_sp != sizeof *sp) return 3;
+    size_t points = 1;
+    for (int i = 0; i < 3; i++)
+        if (sp->parameters.output_points[i] > 1)
+            points *= (size_t)sp->parameters.output_points[i];
+    float *out = calloc(2 * points, sizeof(float));   /* complex at most */
+    if (!beamformer_beamform_data(sp, raw, (uint32_t)n_raw, out, 120000)) {
+        fprintf(stderr, "beamform failed: %s\n",
+                beamformer_get_last_error_string());
+        return 4;
+    }
+    FILE *f = fopen(argv[3], "wb");
+    if (!f || fwrite(out, sizeof(float), points, f) != points) return 5;
+    fclose(f);
+    printf("FRAME %zu\n", points);
+    return 0;
+}
+"""
+
+
+def block_beamformer(dev, block):
+    """A Beamformer on ``dev`` holding the state of a server's block: the
+    reference its served frames are held to."""
+    from ogl_beamforming_tpu_torch.pipeline.executor import Beamformer
+    bf = Beamformer(device=dev)
+    bf.push_parameters(block.parameters)
+    bf.push_pipeline([sd.kind for sd in block.pipeline.stages],
+                     block.pipeline.data_kind,
+                     [sd.parameter for sd in block.pipeline.stages])
+    bf.push_channel_mapping(block.channel_mapping)
+    bf.push_sparse_elements(block.sparse_elements)
+    bf.push_focal_vectors(block.focal_vectors)
+    bf.push_transmit_receive_orientations(
+        block.transmit_receive_orientations)
+    bf._blocks[0].filters = dict(block.filters)
+    return bf
+
+
+def client_stats(lib) -> np.ndarray:
+    """The stats table's times as the client reads them."""
+    import ctypes as ct
+    from ogl_beamforming_tpu_torch.runtime import abi
+    table = abi.CStatsTable()
+    check(lib.beamformer_compute_timings(ct.byref(table), 1000) == 1,
+          "beamformer_compute_timings failed")
+    return np.ctypeslib.as_array(table.times).copy()
+
+
+def c_client_frame(label, sp, raw, shm_name) -> np.ndarray:
+    """One frame from a C client compiled against generated/
+    ogl_beamformer_lib.h and the port's library, in a subprocess: it reads
+    the parameters' bytes and the raw frame from files and calls
+    beamformer_beamform_data."""
+    import ctypes as ct
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from ogl_beamforming_tpu_torch.runtime import abi
+    lib_dir = abi.build_native().parent
+    tmp = Path(tempfile.mkdtemp(prefix="ogl_bf_client_"))
+    try:
+        (tmp / "client.c").write_text(C_CLIENT)
+        generated = Path(__file__).resolve().parent / "generated"
+        subprocess.run([abi.find_cc(), str(tmp / "client.c"), "-I",
+                        str(generated), "-L", str(lib_dir),
+                        "-logl_beamformer_tpu", "-o", str(tmp / "client")],
+                       check=True, capture_output=True, timeout=120)
+        (tmp / "sp").write_bytes(ct.string_at(ct.addressof(sp),
+                                              ct.sizeof(sp)))
+        raw.tofile(tmp / "raw")
+        env = dict(os.environ, LD_LIBRARY_PATH=str(lib_dir),
+                   OGL_BEAMFORMER_SHM_NAME=shm_name)
+        t0 = time.perf_counter()
+        run = subprocess.run([str(tmp / "client"), str(tmp / "sp"),
+                              str(tmp / "raw"), str(tmp / "out")], env=env,
+                             capture_output=True, text=True, timeout=300)
+        ms = (time.perf_counter() - t0) * 1e3
+        check(run.returncode == 0, f"{label}: C client exit "
+              f"{run.returncode}: {run.stdout} {run.stderr}")
+        print(f"[serve {label}] C client (subprocess, "
+              f"beamformer_beamform_data): {run.stdout.strip()} in "
+              f"{ms:.1f} ms with its process start")
+        return np.fromfile(tmp / "out", np.float32)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def serve_path(label, dev, params, pipe, raw, target_voxel,
+               kernels) -> float:
+    """A BeamformerServer on ``dev`` and a client in this process: the
+    client pushes the simple parameters and, after a warm-up, SERVE_FRAMES
+    frames of the STREAM_VARIANTS raw frames with
+    beamformer_push_data_with_compute, then reads them back with
+    beamformer_get_last_frames and the stats with
+    beamformer_compute_timings, the launch counts set to 0 just before.
+    Each kernel must launch once per frame, the client's stats table must
+    hold SERVE_FRAMES new rows, and every frame must equal
+    push_data_with_compute of its raw frame bit for bit, its peak within
+    one voxel of the target; then one frame from a C client in a
+    subprocess, held to the same.  Returns the served ms/frame
+    (the client's clock, first push to the last export, over
+    SERVE_FRAMES)."""
+    import ctypes as ct
+    import os
+
+    from ogl_beamforming_tpu_torch.kernels import build
+    from ogl_beamforming_tpu_torch.runtime.server import (
+        BeamformerServer, simple_parameters_to_c)
+
+    name = f"/ogl_bf_smoke_{os.getpid()}"
+    os.environ["OGL_BEAMFORMER_SHM_NAME"] = name
+    srv = BeamformerServer(shm_size=SERVE_SHM_BYTES, device=dev).start()
+    try:
+        lib = srv.lib
+        lib.beamformer_set_global_timeout(SERVE_TIMEOUT_MS)
+        sp = simple_parameters_to_c(params, pipe.shaders, pipe.data_kind)
+        check(lib.beamformer_push_simple_parameters(ct.byref(sp)) == 1,
+              f"{label}: push_simple_parameters failed")
+        shape = grid_shape(params)
+        frames = np.zeros((SERVE_FRAMES, int(np.prod(shape))), np.float32)
+
+        def push(v):
+            check(lib.beamformer_push_data_with_compute(
+                v.ctypes.data_as(ct.c_void_p), v.nbytes, 0, 0) == 1,
+                f"{label}: push failed: "
+                f"{lib.beamformer_get_last_error_string()}")
+
+        def export(count):
+            check(lib.beamformer_get_last_frames(
+                frames.ctypes.data_as(ct.c_void_p),
+                ct.c_uint64(frames[:count].nbytes), count) == 1,
+                f"{label}: get_last_frames failed: "
+                f"{lib.beamformer_get_last_error_string()}")
+
+        variants = stream_variants(raw)
+        for v in variants:                 # the plan, the session's rings
+            push(v)
+        export(1)
+        build.LAUNCHES.clear()
+        first = srv.beamformer.stats._frame_index
+        before = client_stats(lib)
+        t0 = time.perf_counter()
+        for i in range(SERVE_FRAMES):
+            push(variants[i % STREAM_VARIANTS])
+        export(SERVE_FRAMES)
+        served = (time.perf_counter() - t0) * 1e3 / SERVE_FRAMES
+        launches = {k: build.LAUNCHES[k] for k in kernels}
+        check(all(n == SERVE_FRAMES for n in launches.values()),
+              f"{label}: kernel launch counts {launches} != "
+              f"{SERVE_FRAMES} served frames")
+        after = client_stats(lib)
+        new_rows = {r for r in range(len(after))
+                    if not np.array_equal(before[r], after[r])}
+        want = {(first + i) % len(after) for i in range(SERVE_FRAMES)}
+        check(new_rows == want and (after[sorted(want)] > 0).any(axis=1)
+              .all(), f"{label}: the client's stats table changed in "
+              f"rows {sorted(new_rows)}, expected {sorted(want)}")
+
+        ref_bf = block_beamformer(dev, srv.beamformer._blocks[0])
+        refs = [ref_bf.push_data_with_compute(v).to_reference_layout()
+                for v in variants]
+        for i, f in enumerate(frames):
+            check(np.array_equal(f, refs[i % STREAM_VARIANTS]),
+                  f"{label}: served frame {i} differs from "
+                  f"push_data_with_compute of its raw frame")
+            peak_check(f"{label} served frame {i}",
+                       f.reshape(shape[::-1]).transpose(2, 1, 0),
+                       target_voxel)
+        print(f"[serve {label}] {SERVE_FRAMES} frames of "
+              f"{raw.nbytes} bytes: launches {launches}; {len(new_rows)} new "
+              f"rows in the client's stats table; every frame equal to "
+              f"push_data_with_compute of its raw frame bit for bit, peaks "
+              f"within one voxel of {target_voxel}; served {served:.3f} "
+              f"ms/frame (client clock, first push to last export / "
+              f"{SERVE_FRAMES})")
+        # nothing is in flight: the scratch is free to write
+        scratch = srv._scratch(raw.nbytes)
+        into = host_ms(lambda: ct.memmove(scratch.ctypes.data,
+                                          variants[0].ctypes.data,
+                                          raw.nbytes))
+        copy = host_ms(lambda: scratch.copy())
+        print(f"[serve {label}] parts alone (median host clock): the raw "
+              f"frame copied into the scratch as the client library copies "
+              f"it (memcpy) {into:.3f} ms; a copy of it out of the scratch, "
+              f"which the JAX server makes and this one leaves to the "
+              f"session's pinned copy, {copy:.3f} ms")
+        out = c_client_frame(label, sp, variants[0], name)
+        check(np.array_equal(out, refs[0]), f"{label}: the C client's frame "
+              "differs from push_data_with_compute of its raw frame")
+        peak_check(f"{label} C client frame",
+                   out.reshape(shape[::-1]).transpose(2, 1, 0), target_voxel)
+        print(f"[serve {label}] C client frame equal to "
+              "push_data_with_compute of its raw frame bit for bit")
+        return served
+    finally:
+        os.environ["OGL_BEAMFORMER_SHM_NAME"] = name
+        srv.stop(timeout=60)
+        check(not srv._thread.is_alive(), f"{label}: server thread alive")
+
+
+def phase_serve(dev, smi_line, streamed_ms) -> None:
+    from ogl_beamforming_tpu_torch.runtime.server import shm_free_bytes
+    print(f"[serve] {smi_line}; /dev/shm free {shm_free_bytes()} bytes, "
+          f"region {SERVE_SHM_BYTES} bytes")
+    params, pipe, raw, voxel = quickstart()
+    kernels = ("decode_hadamard", "das_forces")
+    served = serve_path("Quickstart", dev, params, pipe, raw, voxel, kernels)
+    print(f"[serve Quickstart] served {served:.3f} ms/frame; streamed "
+          f"(phase 8, this process) {streamed_ms:.3f} ms/frame; {smi_line}")
 
 
 def main() -> None:
@@ -2122,7 +2456,7 @@ def main() -> None:
     rows += phase_micro(dev, smi_line)
     phase_trace(dev)
     phase_filter_traces()
-    phase_stream(dev, smi_line)
+    phase_serve(dev, smi_line, phase_stream(dev, smi_line))
     for row in rows:
         check(row["launches"] > 0, f"{row['name']} never launched on its path")
     print(json.dumps({"kernels": rows}))

@@ -10,8 +10,8 @@
 // fir replaces ogl_beamforming_tpu/ops/demod_pallas.py::_fir_call (body
 // _fir_kernel, wrapper fir_pallas): the same FIR on float32 or complex64
 // rows, real or complex taps.  Unlike the TPU kernels, both cover every
-// input type, real and complex taps and any D >= 1: on the card there is no
-// XLA path to fall back to.
+// input type, real and complex taps, any D >= 1 and any tap count L: on the
+// card there is no XLA path to fall back to.
 //
 // What bounds them on this card: device memory.  At the demodulate chain's
 // shape (16,384 rows of 4096 int16 samples -> 2048 complex64) demodulate
@@ -43,12 +43,21 @@
 //     consecutive outputs.
 //   V is fixed for each path, by measurement on the H100 (4, 6 and 8
 //   timed): 4 for the register window, whose 32 registers keep 16 blocks
-//   on an SM (8 needs 50 and keeps 10), and 8 for the runtime-L loop, whose
-//   window of D * 1023 + L samples fits the card's 227 KB of shared memory
-//   up to D = 28 (a larger D fails the launch, and the wrapper raises).  A
+//   on an SM (8 needs 50 and keeps 10), and 8 for the runtime-L loop.  A
 //   ring of two cp.async buffers that brought a block's next tile in while
 //   it filtered the current one (8 tiles a block) measured no faster, so a
 //   block stages one tile.
+//   * The runtime-L loop's tile and taps are chosen at launch
+//     (loop_shape): a tile of kThreads * V outputs stages D * 1023 + L
+//     samples, which fits the card's opt-in shared memory (227 KB on the
+//     H100, queried once per device) only up to D = 28 at small L.  Beyond
+//     that the tile is the largest multiple of kThreads outputs whose
+//     window fits (below kThreads outputs, the largest tile that fits),
+//     and a thread's outputs past the tile are skipped.  Where even one
+//     output's taps and window do not fit (L above about 14,500), the taps
+//     go in chunks: the block stages a chunk of taps and the window those
+//     taps read, adds their products to its sums, and takes the next
+//     chunk, so each sum still takes its taps in order.
 //
 // Numerics follow the plain twin (ops/filtering.py, itself the JAX package's
 // tap-unrolled XLA path) operation for operation: the phasor is the twin's
@@ -58,6 +67,7 @@
 // FMA), taps summed in tap order.  Complex data with complex taps is four
 // real sums, rr - ii and ri + ir, as the twin takes them.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -81,6 +91,42 @@ size_t smem_bytes(int tile, int L, int D) {
   return (2 * (size_t)round4(L) + 2 * (size_t)window_stride(tile, L, D)) * sizeof(float);
 }
 
+constexpr int kMaxDevices = 16;  // the opt-in limit is kept per device
+
+// The shared memory a block may opt in to on the current device, queried
+// once per device.
+int smem_limit(int* limit) {
+  static std::atomic<int> cache[kMaxDevices];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  int v = device < kMaxDevices ? cache[device].load(std::memory_order_relaxed) : 0;
+  if (v == 0) {
+    err = cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) return (int)err;
+    if (device < kMaxDevices) cache[device].store(v, std::memory_order_relaxed);
+  }
+  *limit = v;
+  return 0;
+}
+
+// The runtime-L loop's outputs a tile and taps a chunk at (L, D) under
+// `limit` bytes of shared memory: all L taps where a tile of one output
+// holds them and its window, else chunks that fill half of it; then the
+// largest tile of at most `full` outputs that fits, a multiple of kThreads
+// from kThreads outputs on.
+void loop_shape(int L, int D, int full, size_t limit, int* tile, int* chunk) {
+  int J = L;
+  if (smem_bytes(1, J, D) > limit) J = (int)(limit / 2 / (4 * sizeof(float))) & ~3;
+  int lo = 1, hi = full;  // smem_bytes grows with the tile
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (smem_bytes(mid, J, D) <= limit) lo = mid; else hi = mid - 1;
+  }
+  *tile = lo >= kThreads ? lo - lo % kThreads : lo;
+  *chunk = J;
+}
+
 __device__ __forceinline__ int mod(int a, int m) { return ((a % m) + m) % m; }
 
 template <typename T>
@@ -100,11 +146,12 @@ struct Smem {
   }
 };
 
+// Taps j0 .. j0 + J of the L taps (re | im) into shared memory.
 __device__ __forceinline__ void stage_taps(const float* __restrict__ taps, bool cx_h, int L,
-                                           const Smem& s) {
-  for (int j = threadIdx.x; j < L; j += blockDim.x) {
-    s.hr[j] = taps[j];
-    s.hi[j] = cx_h ? taps[L + j] : 0.f;
+                                           int j0, int J, const Smem& s) {
+  for (int j = threadIdx.x; j < J; j += blockDim.x) {
+    s.hr[j] = taps[j0 + j];
+    s.hi[j] = cx_h ? taps[L + j0 + j] : 0.f;
   }
 }
 
@@ -138,56 +185,76 @@ __device__ __forceinline__ void load_window(const float* w, float (&x)[N]) {
 template <int V, int LT>
 struct Outputs {
   static constexpr int kStep = LT > 0 ? 1 : kThreads;
-  __device__ static int first(int t) { return LT > 0 ? t * V : t; }
 };
 
-// The tap loop of one thread's V outputs (Outputs<V, LT>): `wr`/`wi` point
-// at the window sample that tap 0 of its first output reads (wi unused for
-// real data), `hr`/`hi` at the taps.
-template <bool CX_X, bool CX_H, int V, int LT>
-__device__ __forceinline__ void fir_outputs(const float* wr, const float* wi, const float* hr,
-                                            const float* hi, int L, int D, float (&yr)[V],
-                                            float (&yi)[V]) {
+// The four real sums of one thread's V outputs.
+template <int V>
+struct Sums {
   float rr[V], ii[V], ri[V], ir[V];
+  __device__ Sums() {
 #pragma unroll
-  for (int v = 0; v < V; ++v) rr[v] = ii[v] = ri[v] = ir[v] = 0.f;
-  if constexpr (LT > 0) {
-    constexpr int NW = round4(V + LT - 1);
-    constexpr int ALIGN = V % 4 == 0 ? 4 : V % 2 == 0 ? 2 : 1;
-    float xr[NW], xi[NW];
-    load_window<NW, ALIGN>(wr, xr);
-    if (CX_X) load_window<NW, ALIGN>(wi, xi);
+    for (int v = 0; v < V; ++v) rr[v] = ii[v] = ri[v] = ir[v] = 0.f;
+  }
+};
+
+// The tap loop of one thread's V consecutive outputs of the register
+// window (LT taps at D = 1): `wr`/`wi` point at the window sample that tap 0
+// of its first output reads (wi unused for real data), `hr`/`hi` at the
+// taps.
+template <bool CX_X, bool CX_H, int V, int LT>
+__device__ __forceinline__ void window_taps(const float* wr, const float* wi, const float* hr,
+                                            const float* hi, Sums<V>& s) {
+  constexpr int NW = round4(V + LT - 1);
+  constexpr int ALIGN = V % 4 == 0 ? 4 : V % 2 == 0 ? 2 : 1;
+  float xr[NW], xi[NW];
+  load_window<NW, ALIGN>(wr, xr);
+  if (CX_X) load_window<NW, ALIGN>(wi, xi);
 #pragma unroll
-    for (int j = 0; j < LT; ++j) {
-      const float h_r = hr[j];
-      const float h_i = CX_H ? hi[j] : 0.f;
+  for (int j = 0; j < LT; ++j) {
+    const float h_r = hr[j];
+    const float h_i = CX_H ? hi[j] : 0.f;
 #pragma unroll
-      for (int v = 0; v < V; ++v) {
-        rr[v] = __fadd_rn(rr[v], __fmul_rn(h_r, xr[v + j]));
-        if (CX_X) ir[v] = __fadd_rn(ir[v], __fmul_rn(h_r, xi[v + j]));
-        if (CX_H) ri[v] = __fadd_rn(ri[v], __fmul_rn(h_i, xr[v + j]));
-        if (CX_X && CX_H) ii[v] = __fadd_rn(ii[v], __fmul_rn(h_i, xi[v + j]));
-      }
-    }
-  } else {
-    const int step = Outputs<V, LT>::kStep * D;
-    for (int j = 0; j < L; ++j) {
-      const float h_r = hr[j];
-      const float h_i = CX_H ? hi[j] : 0.f;
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        const float a = wr[v * step + j];
-        rr[v] = __fadd_rn(rr[v], __fmul_rn(h_r, a));
-        if (CX_X) ir[v] = __fadd_rn(ir[v], __fmul_rn(h_r, wi[v * step + j]));
-        if (CX_H) ri[v] = __fadd_rn(ri[v], __fmul_rn(h_i, a));
-        if (CX_X && CX_H) ii[v] = __fadd_rn(ii[v], __fmul_rn(h_i, wi[v * step + j]));
-      }
+    for (int v = 0; v < V; ++v) {
+      s.rr[v] = __fadd_rn(s.rr[v], __fmul_rn(h_r, xr[v + j]));
+      if (CX_X) s.ir[v] = __fadd_rn(s.ir[v], __fmul_rn(h_r, xi[v + j]));
+      if (CX_H) s.ri[v] = __fadd_rn(s.ri[v], __fmul_rn(h_i, xr[v + j]));
+      if (CX_X && CX_H) s.ii[v] = __fadd_rn(s.ii[v], __fmul_rn(h_i, xi[v + j]));
     }
   }
+}
+
+// Adds J taps' products to the sums of one thread's V outputs kThreads
+// apart (`step` = kThreads * D window samples apart): `wr`/`wi` point at
+// the sample that the chunk's first tap of the first output reads,
+// `hr`/`hi` at the chunk's taps.  FULL: every one of the V outputs lies in
+// the tile; else only the first `count`.
+template <bool CX_X, bool CX_H, int V, bool FULL>
+__device__ __forceinline__ void loop_taps(const float* wr, const float* wi, const float* hr,
+                                          const float* hi, int J, int step, int count,
+                                          Sums<V>& s) {
+  for (int j = 0; j < J; ++j) {
+    const float h_r = hr[j];
+    const float h_i = CX_H ? hi[j] : 0.f;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      if (!FULL && v >= count) break;
+      const float a = wr[v * step + j];
+      s.rr[v] = __fadd_rn(s.rr[v], __fmul_rn(h_r, a));
+      if (CX_X) s.ir[v] = __fadd_rn(s.ir[v], __fmul_rn(h_r, wi[v * step + j]));
+      if (CX_H) s.ri[v] = __fadd_rn(s.ri[v], __fmul_rn(h_i, a));
+      if (CX_X && CX_H) s.ii[v] = __fadd_rn(s.ii[v], __fmul_rn(h_i, wi[v * step + j]));
+    }
+  }
+}
+
+// The outputs of the four sums: rr - ii and ri + ir for complex data and
+// taps, as the twin takes them.
+template <bool CX_X, bool CX_H, int V>
+__device__ __forceinline__ void outputs(const Sums<V>& s, float (&yr)[V], float (&yi)[V]) {
 #pragma unroll
   for (int v = 0; v < V; ++v) {
-    yr[v] = CX_X && CX_H ? __fsub_rn(rr[v], ii[v]) : rr[v];
-    yi[v] = CX_X && CX_H ? __fadd_rn(ri[v], ir[v]) : CX_X ? ir[v] : CX_H ? ri[v] : 0.f;
+    yr[v] = CX_X && CX_H ? __fsub_rn(s.rr[v], s.ii[v]) : s.rr[v];
+    yi[v] = CX_X && CX_H ? __fadd_rn(s.ri[v], s.ir[v]) : CX_X ? s.ir[v] : CX_H ? s.ri[v] : 0.f;
   }
 }
 
@@ -242,26 +309,14 @@ __device__ __forceinline__ void load16(const float* p, float (&x)[4]) {
   x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
 }
 
-template <typename T, bool CX_H, int V, int LT>
-__global__ void __launch_bounds__(kThreads)
-demodulate_kernel(const T* __restrict__ x, const float2* __restrict__ phasor,
-                  const float* __restrict__ taps, float2* __restrict__ out, int S_in,
-                  int n_out, int L, int D, int tiles, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int TILE = kThreads * V;
-  const int W = window_len(TILE, L, D);
-  const Smem sm(smem, L, window_stride(TILE, L, D));
-  const int row = blockIdx.x / tiles;
-  const int n0 = (blockIdx.x % tiles) * TILE;
-  const int s_pairs = S_in / 2;
-  const int pw0 = D * n0 - (L - 1);  // the window's first pair
-  const T* src = x + (size_t)row * S_in;
-
-  stage_taps(taps, CX_H, L, sm);
-
-  // Stage the rotated pairs [pw0, pw0 + W) in chunks of PC pairs, each one
-  // 16-byte word of the row where the row's sample offset is even (pairs
-  // then start at 4-byte boundaries), else sample by sample.
+// Stage the rotated pairs [pw0, pw0 + W) of a row of s_pairs pairs in
+// chunks of PC pairs, each one 16-byte word of the row where the row's
+// sample offset is even (pairs then start at 4-byte boundaries), else
+// sample by sample.
+template <typename T>
+__device__ __forceinline__ void stage_pairs(const T* __restrict__ src,
+                                            const float2* __restrict__ phasor, int pw0, int W,
+                                            int s_pairs, float scale, const Smem& sm) {
   constexpr int E = 16 / sizeof(T);  // samples per 16-byte word
   constexpr int PC = E / 2;          // pairs per chunk
   const int mis = static_cast<int>((reinterpret_cast<uintptr_t>(src) / sizeof(T)) % E);
@@ -296,35 +351,16 @@ demodulate_kernel(const T* __restrict__ x, const float2* __restrict__ phasor,
       sm.wi[idx] = im;
     }
   }
-  __syncthreads();
-
-  const int n = n0 + Outputs<V, LT>::first(threadIdx.x);
-  if (n >= n_out) return;
-  const int k = D * (n - n0);
-  float yr[V], yi[V];
-  fir_outputs<true, CX_H, V, LT>(sm.wr + k, sm.wi + k, sm.hr, sm.hi, L, D, yr, yi);
-  store_complex<V, LT>(out + (size_t)row * n_out + n, n_out - n, yr, yi);
 }
 
-template <bool CX_X, bool CX_H, int V, int LT>
-__global__ void __launch_bounds__(kThreads)
-fir_kernel(const float* __restrict__ x, const float* __restrict__ taps, void* __restrict__ out,
-           int S, int n_out, int L, int D, int tiles) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int TILE = kThreads * V;
-  const int W = window_len(TILE, L, D);
-  const Smem sm(smem, L, window_stride(TILE, L, D));
-  const int row = blockIdx.x / tiles;
-  const int n0 = (blockIdx.x % tiles) * TILE;
-  const int sw0 = D * n0 - (L - 1);  // the window's first sample
-
-  stage_taps(taps, CX_H, L, sm);
-
-  // Stage samples [sw0, sw0 + W) in chunks of one 16-byte word of the row
-  // (4 floats or 2 complex), element by element where the row cuts one.
+// Stage samples [sw0, sw0 + W) of a row of S elements in chunks of one
+// 16-byte word of the row (4 floats or 2 complex), element by element where
+// the row cuts one.
+template <bool CX_X>
+__device__ __forceinline__ void stage_samples(const float* __restrict__ src, int sw0, int W,
+                                              int S, const Smem& sm) {
   constexpr int F = CX_X ? 2 : 1;  // floats per element
   constexpr int E = 4 / F;         // elements per 16-byte word
-  const float* src = x + (size_t)row * S * F;
   const int mis = static_cast<int>((reinterpret_cast<uintptr_t>(src) / (4 * F)) % E);
   const int sa = sw0 - mod(sw0 - (E - mis) % E, E);
   for (int s = sa + threadIdx.x * E; s < sw0 + W; s += kThreads * E) {
@@ -346,18 +382,134 @@ fir_kernel(const float* __restrict__ x, const float* __restrict__ taps, void* __
       if (CX_X) sm.wi[idx] = v[k * F + 1];
     }
   }
-  __syncthreads();
+}
 
-  const int n = n0 + Outputs<V, LT>::first(threadIdx.x);
-  if (n >= n_out) return;
-  const int k = D * (n - n0);
+// How many of the V outputs n + v * kThreads of the thread whose first is n
+// lie in the tile [n0, n0 + tile) and the row's n_out outputs.
+template <int V>
+__device__ __forceinline__ int loop_count(int n, int n0, int tile, int n_out) {
+  const int end = min(n0 + tile, n_out);
+  return n >= end ? 0 : min(V, (end - n + kThreads - 1) / kThreads);
+}
+
+// The runtime-L loop of one block (LT = 0): `stage(j0, J, sw0, W)` stages
+// taps j0 .. j0 + J and the window [sw0, sw0 + W) they read; the thread's
+// sums over each chunk of taps, in tap order.  Returns the thread's count
+// of outputs (loop_count).
+template <bool CX_X, bool CX_H, int V, typename Stage>
+__device__ __forceinline__ int loop_tile(int n0, int tile, int chunk, int n_out, int L, int D,
+                                         const Smem& sm, Stage stage, Sums<V>& sums) {
+  const int n = n0 + threadIdx.x;
+  const int count = loop_count<V>(n, n0, tile, n_out);
+  const int k = D * threadIdx.x;
+  for (int j0 = 0; j0 < L; j0 += chunk) {
+    const int J = min(chunk, L - j0);
+    if (j0 > 0) __syncthreads();  // every thread has read the last chunk
+    stage(j0, J, D * n0 - (L - 1) + j0, window_len(tile, J, D));
+    __syncthreads();
+    if (count == V)
+      loop_taps<CX_X, CX_H, V, true>(sm.wr + k, sm.wi + k, sm.hr, sm.hi, J, kThreads * D, V,
+                                     sums);
+    else
+      loop_taps<CX_X, CX_H, V, false>(sm.wr + k, sm.wi + k, sm.hr, sm.hi, J, kThreads * D,
+                                      count, sums);
+  }
+  return count;
+}
+
+// LT > 0: tiles of kThreads * V outputs, each thread V consecutive ones from
+// its register window (tile and chunk unused).  LT = 0: tiles of `tile`
+// outputs and taps in chunks of `chunk` (loop_shape).  Each thread ends
+// with the sums of its outputs from n on, `valid` of which it stores.
+template <typename T, bool CX_H, int V, int LT>
+__global__ void __launch_bounds__(kThreads)
+demodulate_kernel(const T* __restrict__ x, const float2* __restrict__ phasor,
+                  const float* __restrict__ taps, float2* __restrict__ out, int S_in,
+                  int n_out, int L, int D, int tiles, float scale, int tile, int chunk) {
+  extern __shared__ __align__(16) float smem[];
+  const int row = blockIdx.x / tiles;
+  const int s_pairs = S_in / 2;
+  const T* src = x + (size_t)row * S_in;
+  Sums<V> sums;
+  int n, valid;
+  if constexpr (LT > 0) {
+    constexpr int TILE = kThreads * V;
+    const int W = window_len(TILE, L, D);
+    const Smem sm(smem, L, window_stride(TILE, L, D));
+    const int n0 = (blockIdx.x % tiles) * TILE;
+    stage_taps(taps, CX_H, L, 0, L, sm);
+    stage_pairs(src, phasor, D * n0 - (L - 1), W, s_pairs, scale, sm);
+    __syncthreads();
+
+    n = n0 + threadIdx.x * V;
+    if (n >= n_out) return;
+    valid = n_out - n;
+    const int k = D * (n - n0);
+    window_taps<true, CX_H, V, LT>(sm.wr + k, sm.wi + k, sm.hr, sm.hi, sums);
+  } else {
+    const Smem sm(smem, chunk, window_stride(tile, chunk, D));
+    const int n0 = (blockIdx.x % tiles) * tile;
+    const int count = loop_tile<true, CX_H, V>(
+        n0, tile, chunk, n_out, L, D, sm,
+        [&](int j0, int J, int pw0, int W) {
+          stage_taps(taps, CX_H, L, j0, J, sm);
+          stage_pairs(src, phasor, pw0, W, s_pairs, scale, sm);
+        },
+        sums);
+    if (count == 0) return;
+    n = n0 + threadIdx.x;
+    valid = min(n_out, n0 + tile) - n;
+  }
   float yr[V], yi[V];
-  fir_outputs<CX_X, CX_H, V, LT>(sm.wr + k, sm.wi + k, sm.hr, sm.hi, L, D, yr, yi);
+  outputs<true, CX_H, V>(sums, yr, yi);
+  store_complex<V, LT>(out + (size_t)row * n_out + n, valid, yr, yi);
+}
+
+template <bool CX_X, bool CX_H, int V, int LT>
+__global__ void __launch_bounds__(kThreads)
+fir_kernel(const float* __restrict__ x, const float* __restrict__ taps, void* __restrict__ out,
+           int S, int n_out, int L, int D, int tiles, int tile, int chunk) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int F = CX_X ? 2 : 1;  // floats per element
+  const int row = blockIdx.x / tiles;
+  const float* src = x + (size_t)row * S * F;
+  Sums<V> sums;
+  int n, valid;
+  if constexpr (LT > 0) {
+    constexpr int TILE = kThreads * V;
+    const int W = window_len(TILE, L, D);
+    const Smem sm(smem, L, window_stride(TILE, L, D));
+    const int n0 = (blockIdx.x % tiles) * TILE;
+    stage_taps(taps, CX_H, L, 0, L, sm);
+    stage_samples<CX_X>(src, D * n0 - (L - 1), W, S, sm);
+    __syncthreads();
+
+    n = n0 + threadIdx.x * V;
+    if (n >= n_out) return;
+    valid = n_out - n;
+    const int k = D * (n - n0);
+    window_taps<CX_X, CX_H, V, LT>(sm.wr + k, sm.wi + k, sm.hr, sm.hi, sums);
+  } else {
+    const Smem sm(smem, chunk, window_stride(tile, chunk, D));
+    const int n0 = (blockIdx.x % tiles) * tile;
+    const int count = loop_tile<CX_X, CX_H, V>(
+        n0, tile, chunk, n_out, L, D, sm,
+        [&](int j0, int J, int sw0, int W) {
+          stage_taps(taps, CX_H, L, j0, J, sm);
+          stage_samples<CX_X>(src, sw0, W, S, sm);
+        },
+        sums);
+    if (count == 0) return;
+    n = n0 + threadIdx.x;
+    valid = min(n_out, n0 + tile) - n;
+  }
+  float yr[V], yi[V];
+  outputs<CX_X, CX_H, V>(sums, yr, yi);
+  const size_t at = (size_t)row * n_out + n;
   if (CX_X || CX_H)
-    store_complex<V, LT>(static_cast<float2*>(out) + (size_t)row * n_out + n, n_out - n, yr,
-                         yi);
+    store_complex<V, LT>(static_cast<float2*>(out) + at, valid, yr, yi);
   else
-    store_real<V, LT>(static_cast<float*>(out) + (size_t)row * n_out + n, n_out - n, yr);
+    store_real<V, LT>(static_cast<float*>(out) + at, valid, yr);
 }
 
 template <typename Kernel>
@@ -369,18 +521,33 @@ int prepare_launch(Kernel kernel, size_t smem) {
   return (int)err;
 }
 
+// The tile and taps of a launch at (L, D): the register window's fixed
+// tile and all its taps, or loop_shape under the device's opt-in limit.
+template <int V, int LT>
+int launch_shape(int L, int D, int* tile, int* chunk) {
+  *tile = kThreads * V;
+  *chunk = L;
+  if constexpr (LT == 0) {
+    int limit = 0;
+    if (int err = smem_limit(&limit)) return err;
+    loop_shape(L, D, kThreads * V, (size_t)limit, tile, chunk);
+  }
+  return 0;
+}
+
 template <typename T, bool CX_H, int V, int LT>
 int launch_demodulate(const void* x, const void* phasor, const void* taps, void* out, int rows,
                       int S_in, int n_out, int L, int D, float scale, cudaStream_t stream) {
   auto kernel = demodulate_kernel<T, CX_H, V, LT>;
-  constexpr int tile = kThreads * V;
-  const size_t smem = smem_bytes(tile, L, D);
+  int tile, chunk;
+  if (int err = launch_shape<V, LT>(L, D, &tile, &chunk)) return err;
+  const size_t smem = smem_bytes(tile, chunk, D);
   if (int err = prepare_launch(kernel, smem)) return err;
   const int tiles = (n_out + tile - 1) / tile;
   kernel<<<(unsigned)rows * tiles, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float2*>(phasor),
       static_cast<const float*>(taps), static_cast<float2*>(out), S_in, n_out, L, D, tiles,
-      scale);
+      scale, tile, chunk);
   return (int)cudaGetLastError();
 }
 
@@ -388,13 +555,14 @@ template <bool CX_X, bool CX_H, int V, int LT>
 int launch_fir(const void* x, const void* taps, void* out, int rows, int S, int n_out, int L,
                int D, cudaStream_t stream) {
   auto kernel = fir_kernel<CX_X, CX_H, V, LT>;
-  constexpr int tile = kThreads * V;
-  const size_t smem = smem_bytes(tile, L, D);
+  int tile, chunk;
+  if (int err = launch_shape<V, LT>(L, D, &tile, &chunk)) return err;
+  const size_t smem = smem_bytes(tile, chunk, D);
   if (int err = prepare_launch(kernel, smem)) return err;
   const int tiles = (n_out + tile - 1) / tile;
   kernel<<<(unsigned)rows * tiles, kThreads, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(taps), out, S, n_out, L, D,
-      tiles);
+      tiles, tile, chunk);
   return (int)cudaGetLastError();
 }
 

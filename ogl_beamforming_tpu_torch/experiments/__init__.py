@@ -164,6 +164,33 @@ def sm_clock_mhz() -> float:
     return float(out.stdout.strip().splitlines()[0])
 
 
+def max_sm_clock_mhz() -> float:
+    """The card's highest SM clock, as ``nvidia-smi --query-gpu=
+    clocks.max.sm`` reads it (MHz, first card): the rate a bound assumes."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+GATHER_THREADS = 1024   # threads a block of csrc/micro_gather.cu
+GATHER_CHAINS = 8       # repetitions in one turn of its loop body
+
+
+def gather_work(counts: dict, reps: int, steps: int) -> dict:
+    """The warp-wide instructions that one launch of a gather kernel
+    executes, by kind, from the static counts of its instantiation
+    (``kernels.sass.gather_loops``): ``steps`` blocks of GATHER_THREADS
+    threads, each turning the repetition loop ``reps / step`` times (step
+    GATHER_CHAINS where the counts hold none) and running the code outside
+    every loop once."""
+    warps = steps * GATHER_THREADS // WARP
+    turns = reps // (counts["step"] or GATHER_CHAINS)
+    return {k: warps * (counts["outside"][k] + turns * v)
+            for k, v in counts["body"].items()}
+
+
 def cycles_per_warp_op(seconds: float, clock_mhz: float, sms: int,
                        warp_ops: float) -> float:
     """SM cycles per warp-wide operation when ``warp_ops`` of them, spread

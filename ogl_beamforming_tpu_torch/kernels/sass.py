@@ -29,12 +29,18 @@ way.  :func:`onehot_loops` counts the unit loop of each instantiation of
 counts each instantiation of the int8 skeleton's
 kernels (``decode_i8_kernel``, ``i8_mma_kernel``) whole: its instructions,
 MMAs, ``ldmatrix``, ``cp.async`` and the rest of :data:`I8_OPS`.
-``--source F.cu --same-as G.cu`` also says, for each int8 kernel that both
-compile, whether its SASS is the same instruction for instruction (the
-decode kernel of an older ``decode.cu`` against the current one, say):
+``--source F.cu --same-as G.cu`` also says, for each int8 kernel and each
+instantiation of the filter kernels (``demodulate_kernel``, ``fir_kernel``)
+that both compile, whether its SASS is the same instruction for
+instruction (the decode kernel of an older ``decode.cu`` against the
+current one, say):
 
     python -m ogl_beamforming_tpu_torch.kernels.sass \
         --source ogl_beamforming_tpu_torch/csrc/decode.cu --same-as OLD.cu
+
+:func:`gather_loops` counts the repetition loop of each instantiation of
+``gather_kernel`` (``csrc/micro_gather.cu``, K5-K7) by kind of instruction,
+for the microbenchmarks' bounds.
 """
 
 from __future__ import annotations
@@ -290,22 +296,104 @@ def onehot_loops(text: str) -> dict:
     return out
 
 
+GATHER_FLOAT = ("FADD", "FMUL", "FFMA")
+GATHER_INTEGER = ("IADD3", "IMAD", "ISETP", "LOP3", "SHF", "LEA", "SEL",
+                  "IMNMX", "VIMNMX", "PRMT", "IABS", "MOV")
+GATHER_CONVERT = ("I2F", "F2I", "I2FP", "F2IP")
+"""The kinds of instruction that :func:`gather_loops` counts: float adds
+and products, integer and move instructions, and conversions."""
+_GATHER = re.compile(r"gather_kernelILi(\d+)ELb([01])E")
+
+
+_STEP = re.compile(r"^U?IADD3\s+(U?R\d+),\s*\1,\s*(0x[0-9a-f]+|\d+)\s*,")
+
+
+def gather_loops(text: str) -> dict:
+    """{(variant id, shared memory): counts} of every instantiation of
+    ``gather_kernel`` (``csrc/micro_gather.cu``) in ``text``.  ``body``:
+    the repetition loop (of the loops with float arithmetic, the one with
+    the most; loops nested in it left out), its instructions and of them
+    ``LDS``, ``LDG``, ``float`` (:data:`GATHER_FLOAT`), ``integer``
+    (:data:`GATHER_INTEGER`) and ``convert`` (:data:`GATHER_CONVERT`);
+    ``step``: the repetitions a turn of it takes (the immediate its counter
+    adds: 8 a turn of the source's loop, more where the compiler unrolled
+    it; None where no counter adds an immediate); ``outside``: the same
+    counts of the instructions in no loop, each executed once a warp (so
+    the staging loop, and a remainder loop no launch here enters, are left
+    out: a lower bound)."""
+    def counts(ops):
+        kinds = [o.split(".")[0] for o in ops]
+        return {"instructions": len(ops),
+                "LDS": kinds.count("LDS"), "LDG": kinds.count("LDG"),
+                "float": sum(k in GATHER_FLOAT for k in kinds),
+                "integer": sum(k in GATHER_INTEGER for k in kinds),
+                "convert": sum(k in GATHER_CONVERT for k in kinds)}
+
+    out = {}
+    for name, (instrs, labels) in functions(text).items():
+        m = _GATHER.search(name)
+        if not m:
+            continue
+        loops = []
+        for addr, ins in instrs:
+            b = _BRA.search(ins)
+            if not b:
+                continue
+            tgt = b.group(1)
+            target = int(tgt, 16) if tgt.startswith("0x") else labels.get(tgt)
+            if target is not None and target <= addr:
+                loops.append((target, addr))
+
+        def in_loop(a, skip=None):
+            return any(lo <= a <= hi for lo, hi in loops if (lo, hi) != skip)
+
+        def floats(lo, hi):
+            return sum(lo <= a <= hi and _op(ins).split(".")[0]
+                       in GATHER_FLOAT for a, ins in instrs)
+
+        main = max(loops, key=lambda lh: floats(*lh), default=None)
+        body = [] if main is None or not floats(*main) else [
+            ins for a, ins in instrs if main[0] <= a <= main[1]
+            and not any(main[0] <= lo and hi <= main[1] and (lo, hi) != main
+                        and lo <= a <= hi for lo, hi in loops)]
+        step = None
+        for ins in body:
+            st = _STEP.match(re.sub(r"^@!?U?P\w+\s+", "", ins))
+            if st:
+                step = int(st.group(2), 0)
+        out[(int(m.group(1)), m.group(2) == "1")] = {
+            "body": counts([_op(ins) for ins in body]), "step": step,
+            "outside": counts([_op(ins) for a, ins in instrs
+                               if not in_loop(a)])}
+    return out
+
+
+_FILTER = re.compile(r"(demodulate|fir)_kernelI(.+?)EEv")
+
+
+def same_key(name: str) -> str | None:
+    """:func:`i8_key` of an int8 kernel, "<demodulate|fir> <template
+    arguments as mangled>" of a filter kernel, None for any other."""
+    m = _FILTER.search(name)
+    return i8_key(name) or (f"{m.group(1)} {m.group(2)}" if m else None)
+
+
 def same_as(source, other) -> dict:
-    """{:func:`i8_key`: {"same": bool, "reordered": bool, "instructions":
-    [n, n_other], "registers": [r, r_other]}} for each int8 kernel that
-    both ``.cu`` sources compile: "same" where the two SASS listings are
-    equal instruction for instruction, "reordered" where they hold the same
-    instructions in another order."""
+    """{:func:`same_key`: {"same": bool, "reordered": bool,
+    "instructions": [n, n_other], "registers": [r, r_other]}} for each
+    int8 or filter kernel that both ``.cu`` sources compile: "same" where
+    the two SASS listings are equal instruction for instruction,
+    "reordered" where they hold the same instructions in another order."""
     listings = []
     with tempfile.TemporaryDirectory() as tmp:
         for i, src in enumerate((source, other)):
             (Path(tmp) / str(i)).mkdir()
             text, log = compile_sass(src, Path(tmp) / str(i))
-            regs = {i8_key(k): r for k, (r, _) in ptxas_usage(log).items()}
-            listings.append({i8_key(name): ([ins for _, ins in instrs],
-                                            regs.get(i8_key(name)))
+            regs = {same_key(k): r for k, (r, _) in ptxas_usage(log).items()}
+            listings.append({same_key(name): ([ins for _, ins in instrs],
+                                              regs.get(same_key(name)))
                              for name, (instrs, _) in functions(text).items()
-                             if i8_key(name)})
+                             if same_key(name)})
     mine, theirs = listings
     return {key: {"same": mine[key][0] == theirs[key][0],
                   "reordered": mine[key][0] != theirs[key][0]

@@ -17,6 +17,12 @@ kernels.  On the GPU, for slot ``k``:
    (``runtime/upload.prepare_rf_device``), consumed is recorded, and the
    plan is enqueued (``Beamformer._enqueue``).
 
+A caller that hands the session memory it must reuse (the server's
+scratch arena, ``runtime/server.py``) passes ``on_read`` to
+:meth:`StreamingSession.submit`: the worker calls it once it no longer reads
+the raw frame, right after the copy into the pinned slot (on the CPU after
+the ingest; at once for a frame that is dropped or fails).
+
 The frame's future resolves once it is enqueued, as the JAX worker's does
 after dispatch; its stats row is recorded once its last stage event has
 completed (``Beamformer._finish``), at the latest when ``depth`` frames are
@@ -76,6 +82,19 @@ class _Ring:
 
 
 _DRAIN = object()
+
+
+class _Once:
+    """Calls ``fn`` (if any) the first time it is called, and never
+    again."""
+
+    def __init__(self, fn):
+        self._fn = fn
+
+    def __call__(self):
+        fn, self._fn = self._fn, None
+        if fn is not None:
+            fn()
 
 
 class StreamingSession:
@@ -144,20 +163,23 @@ class StreamingSession:
             self._unfinished += 1
         self._queue.put(item)
 
-    def submit(self, raw: np.ndarray,
-               image_plane_tag: int | None = None) -> FrameHandle:
+    def submit(self, raw: np.ndarray, image_plane_tag: int | None = None,
+               on_read=None) -> FrameHandle:
         """Queue one raw frame; blocks only when ``depth`` frames are
         already queued.  After a live StopImaging request the frame is
-        dropped and the handle resolves to ``None``."""
+        dropped and the handle resolves to ``None``.  ``on_read``: called
+        once, when the session no longer reads ``raw``."""
         if self._stopped:
             raise RuntimeError("session closed")
+        read = _Once(on_read)
         fut: Future = Future()
         if self.stop_requested:
+            read()
             fut.set_result(None)
             return FrameHandle(future=fut)
         tag = self.image_plane_tag if image_plane_tag is None \
             else image_plane_tag
-        self._put((np.asarray(raw), tag, fut))
+        self._put((np.asarray(raw), tag, fut, read))
         return FrameHandle(future=fut)
 
     def flush(self, timeout: float | None = None):
@@ -201,17 +223,22 @@ class StreamingSession:
             self._ring = _Ring(self.depth, shape, dtype, self._device)
         return self._ring
 
-    def _upload(self, b, raw: np.ndarray, columns: int) -> torch.Tensor:
-        """The canonical (C, A, S_wire) frame of ``raw`` on the device."""
+    def _upload(self, b, raw: np.ndarray, columns: int,
+                read) -> torch.Tensor:
+        """The canonical (C, A, S_wire) frame of ``raw`` on the device;
+        ``read()`` once ``raw`` is read."""
         bf = self.beamformer
         src = torch.from_numpy(raw)[:, :columns]
         if not self._cuda:
-            return bf._ingest(b, src)
+            x = bf._ingest(b, src)
+            read()
+            return x
         ring = self._ring_for(tuple(src.shape), src.dtype)
         k = ring.next
         ring.next = (k + 1) % self.depth
         ring.copied[k].synchronize()     # slot k's last upload has left it
         ring.host[k].copy_(src)
+        read()
         with torch.cuda.stream(self._side):
             self._side.wait_event(ring.consumed[k])
             ring.dev[k].copy_(ring.host[k], non_blocking=True)
@@ -222,22 +249,26 @@ class StreamingSession:
         ring.consumed[k].record(compute)
         return x
 
-    def _frame(self, raw: np.ndarray, tag: int, fut: Future):
-        if not self.stop_requested and self._stop_check is not None \
-                and self._stop_check():
-            self.stop_requested = True
-        if self.stop_requested:
-            fut.set_result(None)
-            return
-        self._finish(wait=len(self._pending) >= self.depth)
-        bf = self.beamformer
-        b = bf._block(self.block)
-        plan = bf._ensure_plan(b)
-        columns = bf._raw_columns(b, raw.shape)
-        bf.stats.record_rf_upload()
-        frame, clock = bf._enqueue(plan, self._upload(b, raw, columns), tag)
-        self._pending.append(clock)
-        fut.set_result(frame)
+    def _frame(self, raw: np.ndarray, tag: int, fut: Future, read):
+        try:
+            if not self.stop_requested and self._stop_check is not None \
+                    and self._stop_check():
+                self.stop_requested = True
+            if self.stop_requested:
+                fut.set_result(None)
+                return
+            self._finish(wait=len(self._pending) >= self.depth)
+            bf = self.beamformer
+            b = bf._block(self.block)
+            plan = bf._ensure_plan(b)
+            columns = bf._raw_columns(b, raw.shape)
+            bf.stats.record_rf_upload()
+            x = self._upload(b, raw, columns, read)
+            frame, clock = bf._enqueue(plan, x, tag)
+            self._pending.append(clock)
+            fut.set_result(frame)
+        finally:
+            read()
 
     def _worker(self):
         if self._cuda:
@@ -256,9 +287,9 @@ class StreamingSession:
                     else:
                         item[1].set_result(None)
                     continue
-                raw, tag, fut = item
+                raw, tag, fut, read = item
                 try:
-                    self._frame(raw, tag, fut)
+                    self._frame(raw, tag, fut, read)
                 except Exception as e:          # propagate to the caller
                     fut.set_exception(e)
             except Exception as e:              # raised again by close()

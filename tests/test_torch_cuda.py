@@ -571,14 +571,41 @@ def test_filter_kernels_at_path_b_shapes(dev):
            filtering.fir_filter_ref(out, taps))
 
 
-def test_fir_decimation_beyond_shared_memory_raises(dev):
-    """The runtime-L loop's window of D * 1023 + L samples fits shared
-    memory up to D = 28: D = 29 raises, and the next launch runs."""
-    x = torch.ones((2, 4096), dtype=torch.float32, device=dev)
-    h = _taps(False, dev, n=5)
-    with pytest.raises(RuntimeError, match="fir"):
-        filtering.fir_filter(x, h, 29)
-    _close(filtering.fir_filter(x, h, 28), filtering.fir_filter_ref(x, h, 28))
+@pytest.mark.parametrize("d, length", [(28, 16), (29, 16), (64, 16),
+                                       (200, 16), (1, 16384), (64, 16384),
+                                       (200, 16384)])
+@pytest.mark.parametrize("cplx_taps", [False, True])
+@pytest.mark.parametrize("kind", ["demodulate", "fir real", "fir complex"])
+def test_fir_decimation_beyond_shared_memory_raises(dev, kind, cplx_taps, d,
+                                                    length):
+    """The runtime-L loop once staged a tile of D * 1023 + L samples, which
+    fits the H100's shared memory only up to D = 28, and raised beyond;
+    the name is that check's, kept for the cases it now holds to the
+    twin.  The tile is chosen at launch and L = 16,384 takes its taps in
+    chunks (at D = 200 with a tile of 73 outputs, below one of 128):
+    demodulate (int16) and fir (real and complex data), real and complex
+    taps, at D = 28, 29, 64 and 200 with 16 taps and at D = 1, 64 and 200
+    with 16,384, each one launch and bit-equal to its twin."""
+    rng = np.random.default_rng(d + length)
+    s = max(d * 1100, 20000) + 7
+    h = _taps(cplx_taps, dev, n=length)
+    name = "demodulate" if kind == "demodulate" else "fir"
+    before = build.LAUNCHES[name]
+    if kind == "demodulate":
+        x = torch.from_numpy(rng.integers(-2048, 2048, (3, s),
+                                          dtype=np.int16)).to(dev)
+        out = filtering.demodulate(x, h, 5e6, 20e6, d, cplx_taps)
+        ref = filtering.demodulate_ref(x, h, 5e6, 20e6, d, cplx_taps)
+    else:
+        x = torch.from_numpy(rng.standard_normal((3, s)).astype(
+            np.float32)).to(dev)
+        if kind == "fir complex":
+            x = torch.complex(x, x.flip(-1))
+        out = filtering.fir_filter(x, h, d)
+        ref = filtering.fir_filter_ref(x, h, d)
+    assert build.LAUNCHES[name] == before + 1
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert torch.equal(out, ref)
 
 
 def test_plan_rebuilt_with_another_demodulation_frequency(dev):
@@ -1021,3 +1048,51 @@ def test_device_ingest_on_the_card_equals_prepare_rf(dev, dtype, a1s2,
     assert out.is_cuda
     assert out.cpu().numpy().tobytes() == upload.prepare_rf(raw, m,
                                                             *args).tobytes()
+
+
+def test_served_frames_equal_push_data_with_compute(dev):
+    """A BeamformerServer on the card (runtime/server.py), driven through
+    the port's native library by a client in this process: six frames
+    pushed in a row and read back at once, each equal to
+    push_data_with_compute of its raw frame on the card, bit for bit, each
+    kernel once a frame."""
+    import ctypes as ct
+    import os
+
+    from ogl_beamforming_tpu_torch.runtime.server import (
+        BeamformerServer, simple_parameters_to_c)
+    p, pipe = presets.forces_compounding(channel_count=16, transmit_count=8,
+                                         sample_count=1024, demodulate=False)
+    p.output_points[:] = [64, 96, 1, 0]
+    sp = simple_parameters_to_c(p, pipe.shaders, pipe.data_kind)
+    rng = np.random.default_rng(21)
+    raws = [rng.integers(-2048, 2048, (16, 8 * 1024), dtype=np.int16)
+            for _ in range(6)]
+    name = f"/bf_torch_cuda_{os.getpid()}"
+    os.environ["OGL_BEAMFORMER_SHM_NAME"] = name
+    srv = BeamformerServer(shm_size=64 << 20, device=dev).start()
+    try:
+        lib = srv.lib
+        lib.beamformer_set_global_timeout(60000)
+        assert lib.beamformer_push_simple_parameters(ct.byref(sp)) == 1
+        out = np.zeros((6, 64 * 96), np.float32)
+        before = {k: build.LAUNCHES[k]
+                  for k in ("decode_hadamard", "das_forces")}
+        for raw in raws:
+            assert lib.beamformer_push_data_with_compute(
+                raw.ctypes.data_as(ct.c_void_p), raw.nbytes, 0, 0) == 1
+        assert lib.beamformer_get_last_frames(
+            out.ctypes.data_as(ct.c_void_p), out.nbytes, 6) == 1
+        assert all(build.LAUNCHES[k] == n + 6 for k, n in before.items())
+        block = srv.beamformer._blocks[0]
+        ref = Beamformer(device=dev)
+        ref.push_parameters(block.parameters)
+        ref.push_pipeline([s.kind for s in block.pipeline.stages],
+                          block.pipeline.data_kind)
+        for raw, got in zip(raws, out):
+            want = ref.push_data_with_compute(raw).to_reference_layout()
+            assert np.array_equal(want, got)
+    finally:
+        os.environ["OGL_BEAMFORMER_SHM_NAME"] = name
+        srv.stop(timeout=30)
+    assert not srv._thread.is_alive()

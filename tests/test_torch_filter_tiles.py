@@ -9,11 +9,15 @@ kernels' tiling.
   (fir) from 16-byte words of its row, element by element where the row's
   start, end or odd offset cuts a word; each thread then reads the window
   slots of its V outputs (V consecutive ones for the 16-tap register
-  window at D = 1, else V outputs THREADS apart).  The model follows the
-  kernel's index arithmetic (its constants read from the source) and checks that every output reads
-  exactly the twin's (output, tap) -> input index set, zeros outside the
-  row, every 16-byte word aligned and inside its row, and each output
-  written once.
+  window at D = 1, else V outputs THREADS apart).  The runtime-L loop's
+  tile and taps a chunk are chosen at launch (``loop_shape``): the largest
+  tile whose window fits the card's opt-in shared memory, and the taps in
+  chunks, each with the window it reads, where one output's do not fit.
+  The model follows the kernel's index arithmetic (its constants read from
+  the source) and checks that every output reads exactly the twin's
+  (output, tap) -> input index set, chunk after chunk in tap order, zeros
+  outside the row, every 16-byte word aligned and inside its row, each
+  block's shared memory within the limit, and each output written once.
 * Demodulation through a CPU plan, whose table the twin then reads, against
   JAX and golden (the tolerances of ``test_torch_filtering.py``).
 """
@@ -53,6 +57,8 @@ THREADS = _constant("kThreads")
 FIXED_TAPS = _constant("kFixedTaps")
 WINDOW_OUTPUTS = _constant("kWindowOutputs")   # V of the register window
 LOOP_OUTPUTS = _constant("kLoopOutputs")       # V of the runtime-L loop
+# the H100's opt-in shared memory a block (bytes), which the kernels query
+H100_SMEM = 232448
 
 
 def _plan(fd, fs, c=4, a=2, s=256, d=1, taps=None, data_kind=DataKind.Int16):
@@ -136,48 +142,74 @@ def _stage(first: int, w: int, n_in: int, start: int, per_word: int,
     return slots, u[whole] * unit, singles
 
 
+def _smem_bytes(tile: int, length: int, d: int) -> int:
+    """The kernels' ``smem_bytes``: the taps and the window, re | im."""
+    return 4 * (2 * _round4(length) + 2 * _round4(d * (tile - 1) + length + 3))
+
+
+def _loop_shape(length: int, d: int, limit: int) -> tuple[int, int]:
+    """The kernels' ``loop_shape``: (outputs a tile, taps a chunk)."""
+    chunk = length
+    if _smem_bytes(1, chunk, d) > limit:
+        chunk = limit // 2 // 16 & ~3
+    lo, hi = 1, THREADS * LOOP_OUTPUTS
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if _smem_bytes(mid, chunk, d) <= limit:
+            lo = mid
+        else:
+            hi = mid - 1
+    return (lo - lo % THREADS if lo >= THREADS else lo), chunk
+
+
 def _model(n_in: int, stride: int, length: int, d: int, per_word: int,
-           unit: int, rows: int = 4):
+           unit: int, rows: int = 4, limit: int = H100_SMEM):
     """Run every block of a launch over ``rows`` rows of ``n_in`` units
     (the pairs of an int16 or float32 row, or the samples of a float32 or
-    complex64 one), ``stride`` elements apart, and check it against the
-    twin's index set."""
+    complex64 one), ``stride`` elements apart, under ``limit`` bytes of
+    shared memory a block, and check it against the twin's index set."""
     n_out = n_in // d
     fixed = length == FIXED_TAPS and d == 1
     v = WINDOW_OUTPUTS if fixed else LOOP_OUTPUTS
-    tile = THREADS * v
-    w = d * (tile - 1) + length
+    if fixed:
+        tile, chunk = THREADS * v, length
+    else:
+        tile, chunk = _loop_shape(length, d, limit)
+        assert _smem_bytes(tile, chunk, d) <= limit
     # the register window's V consecutive outputs a thread, or the runtime-L
     # loop's V outputs THREADS apart
     step = 1 if fixed else THREADS
     elems = per_word * unit
     t = np.arange(THREADS)
-    taps = np.arange(length)
     written = np.zeros((rows, n_out), np.int64)
     for row in range(rows):
         start = row * stride % elems      # the tensor starts aligned
         vec = start % unit == 0
         for b in range(-(-n_out // tile)):
             n0 = b * tile
-            first = d * n0 - (length - 1)
-            slots, words, singles = _stage(first, w, n_in, start, per_word,
-                                           unit, vec)
-            assert vec or not len(words)
-            assert ((start + words) % elems == 0).all()
-            assert ((words >= 0) & (words + elems <= n_in * unit)).all()
-            assert ((singles >= 0) & (singles < n_in * unit)).all()
-            assert (slots[:w] != -2).all()
             n = (n0 + (t * v if fixed else t))[:, None] + step * np.arange(v)
             k = d * (n[:, 0] - n0)
-            if fixed:
-                assert (k + _round4(v + length - 1) <= len(slots)).all()
-                assert (k % (4 if v % 4 == 0 else 2) == 0).all()
-            valid = n < n_out
-            read = (k[:, None, None] + d * step * np.arange(v)[:, None]
-                    + taps)[valid]
-            want = d * n[valid][:, None] - (length - 1) + taps
-            want = np.where((want >= 0) & (want < n_in), want, -1)
-            np.testing.assert_array_equal(slots[read], want)
+            valid = n < min(n0 + tile, n_out)
+            for j0 in range(0, length, chunk):
+                taps = np.arange(j0, min(j0 + chunk, length))
+                w = d * (tile - 1) + len(taps)
+                first = d * n0 - (length - 1) + j0
+                slots, words, singles = _stage(first, w, n_in, start,
+                                               per_word, unit, vec)
+                assert vec or not len(words)
+                assert ((start + words) % elems == 0).all()
+                assert ((words >= 0) & (words + elems <= n_in * unit)).all()
+                assert ((singles >= 0) & (singles < n_in * unit)).all()
+                assert (slots[:w] != -2).all()
+                if fixed:
+                    assert (k + _round4(v + length - 1) <= len(slots)).all()
+                    assert (k % (4 if v % 4 == 0 else 2) == 0).all()
+                read = (k[:, None, None] + d * step * np.arange(v)[:, None]
+                        + taps - j0)[valid]
+                assert (read < w).all()
+                want = d * n[valid][:, None] - (length - 1) + taps
+                want = np.where((want >= 0) & (want < n_in), want, -1)
+                np.testing.assert_array_equal(slots[read], want)
             np.add.at(written[row], n[valid], 1)
     assert (written == 1).all()
 
@@ -200,6 +232,53 @@ def test_demodulate_tiles_read_the_twins_window(dtype, d, length, s_in):
 def test_fir_tiles_read_the_twins_window(cplx, d, length, s):
     """float32 rows (4 samples a word) and complex64 rows (2)."""
     _model(s, s, length, d, 2 if cplx else 4, 1)
+
+
+# (D, L, samples a row, shared memory a block): D = 28 keeps the full tile
+# of THREADS * LOOP_OUTPUTS outputs, D = 29, 64 and 200 take fewer; L =
+# 14,600 and 16,384 take their taps in chunks; the small limits make
+# chunks and tiles below THREADS outputs at small sizes.
+LOOP_CASES = [(28, 16, 28 * 1100 + 37, H100_SMEM),
+              (29, 16, 29 * 2000 + 37, H100_SMEM),
+              (64, 5, 64 * 1000 + 3, H100_SMEM),
+              (200, 16, 200 * 300 + 11, H100_SMEM),
+              (1, 16384, 701, H100_SMEM),
+              (3, 14600, 901, H100_SMEM),
+              (29, 300, 29 * 300 + 5, 4096),
+              (1, 400, 1001, 2048),
+              (7, 150, 777, 1024)]
+
+
+@pytest.mark.parametrize("d, length, s, limit", LOOP_CASES)
+@pytest.mark.parametrize("kind", ["int16", "float32", "real", "complex"])
+def test_loop_tiles_at_any_decimation_and_tap_count(kind, d, length, s,
+                                                    limit):
+    """The runtime-L loop at decimations and tap counts whose window of a
+    full tile does not fit: demodulate of int16 and float32 rows, fir of
+    real and complex rows."""
+    if kind in ("int16", "float32"):
+        _model(s // 2, s, length, d, 16 // (2 if kind == "int16" else 4)
+               // 2, 2, rows=2, limit=limit)
+    else:
+        _model(s, s, length, d, 2 if kind == "complex" else 4, 1, rows=2,
+               limit=limit)
+
+
+@pytest.mark.parametrize("d", [1, 28, 29, 64, 200, 4000])
+@pytest.mark.parametrize("length", [1, 16, 37, 5000, 14600, 16384, 100000])
+def test_loop_shape_fits_the_h100(d, length):
+    """Every (D, L) gets a tile of at least one output within the H100's
+    shared memory; all taps at once where one output's fit, and the full
+    tile wherever it fits: every D <= 28 at L <= 37, no D >= 29."""
+    tile, chunk = _loop_shape(length, d, H100_SMEM)
+    full_tile = THREADS * LOOP_OUTPUTS
+    assert 1 <= tile <= full_tile and 1 <= chunk <= length
+    assert _smem_bytes(tile, chunk, d) <= H100_SMEM
+    assert (chunk == length) == (_smem_bytes(1, length, d) <= H100_SMEM)
+    assert (tile == full_tile) == (_smem_bytes(full_tile, chunk, d)
+                                   <= H100_SMEM)
+    if length <= 37:
+        assert (tile == full_tile) == (d <= 28)
 
 
 # ---------------------------------------------------------------------------

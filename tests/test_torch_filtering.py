@@ -142,3 +142,43 @@ def test_cuda_wrappers_reject_cpu_tensors(wrapper):
     args = (x, h, FD, FS) if wrapper == "demodulate_cuda" else (x, h)
     with pytest.raises(ValueError, match="CUDA"):
         fn(*args)
+
+
+# Decimations whose window of a full tile does not fit the H100's shared
+# memory (csrc/filter.cu's runtime tile; the twins compute every D): rows
+# of 2 x 16,001 samples, so that D = 200 still leaves 40 outputs of
+# demodulation.  Same tolerances as above.
+S_LONG = 16001
+
+
+def _long(kind: str) -> np.ndarray:
+    rng = np.random.default_rng({"int16": 5, "c64": 6}[kind])
+    if kind == "int16":
+        return rng.integers(-2048, 2048, (2, S_LONG)).astype(np.int16)
+    return (rng.standard_normal((2, S_LONG))
+            + 1j * rng.standard_normal((2, S_LONG))).astype(np.complex64)
+
+
+@pytest.mark.parametrize("d", [29, 64, 200])
+@pytest.mark.parametrize("cplx_taps", [False, True])
+@pytest.mark.parametrize("stage", ["demodulate", "fir"])
+def test_large_decimation_matches_jax_and_golden(stage, cplx_taps, d):
+    h = _taps(cplx_taps)
+    if stage == "demodulate":
+        x = _long("int16")
+        out = filtering.demodulate(torch.from_numpy(x), torch.from_numpy(h),
+                                   FD, FS, d, cplx_taps).numpy()
+        assert out.shape == (2, S_LONG // 2 // d)
+        xla = jax_filtering.demodulate(jnp.asarray(x), jnp.asarray(h), FD,
+                                       FS, decimation_rate=d,
+                                       complex_filter=cplx_taps)
+        ref = golden.demodulate(x, h, FD, FS, d, complex_filter=cplx_taps)
+    else:
+        x = _long("c64")
+        out = filtering.fir_filter(torch.from_numpy(x), torch.from_numpy(h),
+                                   d).numpy()
+        assert out.shape == (2, S_LONG // d)
+        xla = jax_filtering.fir_filter(jnp.asarray(x), jnp.asarray(h), d)
+        ref = golden.fir_filter(x, h, d)
+    assert nrmse(np.asarray(xla), out) <= 1e-5
+    assert nrmse(ref, out) <= 1e-3

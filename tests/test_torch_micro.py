@@ -224,3 +224,62 @@ def test_main_needs_a_gpu(name, monkeypatch):
         PORT[name].main()
     with pytest.raises(RuntimeError):
         PORT[name].main(device="cpu")
+
+
+def _listing(functions: dict) -> str:
+    """A cuobjdump -sass listing of ``{mangled name: [instruction]}``."""
+    lines = []
+    for name, body in functions.items():
+        lines.append(f"\t\tFunction : _ZN12_GLOBAL__N_1{name}")
+        lines += [f"        /*{16 * i:04x}*/  {ins} ;"
+                  for i, ins in enumerate(body)]
+    return "\n".join(lines)
+
+
+def test_sass_counts_the_gather_loops():
+    """kernels/sass.gather_loops on a synthetic listing: the repetition
+    loop (the loop with the most float arithmetic, here unrolled to 32
+    repetitions a turn) apart from the staging and remainder loops, and the
+    code in no loop; experiments.gather_work scales them to a launch."""
+    from ogl_beamforming_tpu_torch.experiments import (GATHER_THREADS, WARP,
+                                                       gather_work)
+    from ogl_beamforming_tpu_torch.kernels import sass
+    body = ["LDG.E R2, desc[UR4][R6.64]",                  # 0x00
+            "STS [R3], R2",                                # 0x10
+            "ISETP.GE.AND P0, PT, R3, 0x800, PT",          # 0x20
+            "@!P0 BRA 0x0",                                # 0x30 staging
+            "LDS R8, [R9]",                                # 0x40
+            "I2F R10, R8",                                 # 0x50
+            "FADD R12, R12, R10",                          # 0x60 main loop
+            "FADD R13, R13, R10",                          # 0x70
+            "UIADD3 UR6, UR6, 0x20, URZ",                  # 0x80
+            "ISETP.GE.AND P1, PT, R4, UR6, PT",            # 0x90
+            "@!P1 BRA 0x60",                               # 0xa0
+            "FADD R12, R12, R10",                          # 0xb0 remainder
+            "@P2 BRA 0xb0",                                # 0xc0
+            "STG.E desc[UR4][R6.64], R12",                 # 0xd0
+            "EXIT"]                                        # 0xe0
+    text = _listing({"13gather_kernelILi1ELb1EEEvPKiS1_S1_PKfPfi": body,
+                     "13hermite_kernelILb1ELb1EEEvPKiS1_S1_PKfPfi": body})
+    counts = sass.gather_loops(text)
+    assert set(counts) == {(1, True)}
+    c = counts[(1, True)]
+    assert c["step"] == 32
+    assert c["body"] == {"instructions": 5, "LDS": 0, "LDG": 0, "float": 2,
+                         "integer": 1, "convert": 0}
+    assert c["outside"] == {"instructions": 4, "LDS": 1, "LDG": 0,
+                            "float": 0, "integer": 0, "convert": 1}
+    work = gather_work(c, reps=64, steps=3)
+    warps = 3 * GATHER_THREADS // WARP
+    assert work["instructions"] == warps * (4 + 2 * 5)
+    assert work["float"] == warps * 4 and work["LDS"] == warps
+
+
+def test_sass_same_as_keys_the_filter_kernels():
+    from ogl_beamforming_tpu_torch.kernels import sass
+    assert sass.same_key("_ZN12_GLOBAL__N_117demodulate_kernelIsLb0ELi4ELi16E"
+                         "EEvPKT_PK6float2PKfPS3_iiiiifii") == \
+        "demodulate sLb0ELi4ELi16E"
+    assert sass.same_key("_ZN12_GLOBAL__N_110fir_kernelILb1ELb0ELi8ELi0EEEvPK"
+                         "fS2_Pviiiiiii") == "fir Lb1ELb0ELi8ELi0E"
+    assert sass.same_key("_ZN12_GLOBAL__N_115das_rca_kernelILi2EEEvv") is None

@@ -563,7 +563,11 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "    names.add(m.name)\n"
         "want = {'ogl_beamforming_tpu_torch.utils.profiling',\n"
-        "        'ogl_beamforming_tpu_torch.runtime.streaming'} | {\n"
+        "        'ogl_beamforming_tpu_torch.runtime.streaming',\n"
+        "        'ogl_beamforming_tpu_torch.runtime.abi',\n"
+        "        'ogl_beamforming_tpu_torch.runtime.server',\n"
+        "        'ogl_beamforming_tpu_torch.runtime.hotreload',\n"
+        "        'ogl_beamforming_tpu_torch.params.codegen'} | {\n"
         "    'ogl_beamforming_tpu_torch.experiments.' + n for n in (\n"
         "        'gather_micro', 'gather_micro2', 'gather_micro3',\n"
         "        'onehot_micro', 'onehot_micro2', 'probe_i8', 'probe_i8b')}\n"

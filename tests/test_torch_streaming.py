@@ -191,6 +191,52 @@ def test_streaming_depth_and_a_plan_rebuilt_midstream(rng, depth):
             frame.to_numpy(), ref.push_data_with_compute(raw).to_numpy())
 
 
+@pytest.mark.parametrize("case", ["computed", "failed", "dropped",
+                                  "latched"])
+def test_on_read_runs_once_after_the_raw_frame_is_read(rng, case):
+    """``submit(..., on_read=)`` (how the server hands over its scratch):
+    called exactly once, after the frame's ingest has read the raw frame
+    (the worker's ``_ingest``), also for a frame that fails, one dropped by
+    StopImaging in the worker and one dropped at ``submit``; the frame
+    computed from a buffer overwritten right after ``on_read`` is the
+    buffer's frame before."""
+    bf = _setup()
+    raw = rng.integers(-512, 512, (8, 4 * 256)).astype(np.int16)
+    if case == "failed":
+        raw = raw[:2]                                   # wrong shape
+    events = []
+    ingest = bf._ingest
+
+    def logged_ingest(b, x):
+        events.append("ingest")
+        return ingest(b, x)
+
+    def on_read():
+        events.append("read")
+        raw[...] = 0                                    # the buffer reused
+
+    bf._ingest = logged_ingest
+    want = None if case != "computed" else \
+        bf.push_data_with_compute(raw.copy()).to_numpy()
+    with StreamingSession(bf) as stream:
+        if case == "latched":
+            stream.stop_requested = True
+        elif case == "dropped":
+            _stop(bf, port_types.LiveImagingParameters)
+        h = stream.submit(raw, on_read=on_read)
+        if case == "failed":
+            with pytest.raises(port_enums.BeamformerError):
+                h.result(timeout=TIMEOUT)
+        else:
+            frame = h.result(timeout=TIMEOUT)
+            assert (frame is None) == (case != "computed")
+        stream.drain(timeout=TIMEOUT)
+    assert events == (["ingest", "read"] if case == "computed"
+                      else ["read"])
+    if case == "computed":
+        np.testing.assert_array_equal(frame.to_numpy(), want)
+
+
 def test_flush_times_out_while_a_frame_is_queued(rng):
     bf = _setup()
     gate = threading.Event()
