@@ -97,11 +97,19 @@ line:
               memory, by CUDA events and by its kernel time in a profiler
               trace, and each row by the trace with its bound share, the
               bound counted from the function (its float adds or
-              multiply-adds at the issue rate, its distinct gathers at 3.1
-              cycles a warp, at the card's highest SM clock), beside what
-              the compiled kernel executes (kernels/sass.gather_loops);
+              multiply-adds at the issue rate, its distinct gathers at the
+              shared memory's peak of a warp gather a clock, at the card's
+              highest SM clock), beside what the compiled kernel executes
+              (kernels/sass.gather_loops): gather_floor_kernel's
+              registers, spills, resident blocks a SM and grid, and the
+              warp FADD (K5 mod) or FFMA (K6 hermite_pair) a launch
+              executes, modelled from the SASS, which must reach the
+              function's; K5 mod by the trace at REPS 8, 64 and 128, its
+              slope and intercept;
               K7: the REPS slope of every variant in both, its row also by
-              the trace; K8 and K9: the
+              the trace, its bound from the function as K5's and K6's
+              (its distinct gathers: every repetition's offset is new)
+              beside the first count; K8 and K9: the
               cubic-tap gather bundle and the one-hot product at B = 8, 32,
               128, K8 from the trace, K9 by the UNITS slope, printed as a
               fit). K8 and K9 rows: the one-hot kernel at every B by
@@ -126,7 +134,9 @@ line:
               Beamformer.profile_device_stages of the Quickstart and of
               path B beside its stages' CUDA-event times; then a trace of
               phase 3's demodulate and of its FIR calls, their device time
-              per launch onto their rows.
+              per launch onto their rows.  Phases 5, 6, 7 and 8 end with a
+              [trace] line naming each traced launch of the port's kernels
+              whose device event the trace lacks (DeviceProfile.lost).
   8. stream   the Quickstart and paths A and B through
               runtime/streaming.StreamingSession on
               Beamformer(device="cuda"), after a warm-up: 20 frames of four
@@ -177,7 +187,9 @@ import json
 import re
 import statistics
 import subprocess
+import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -1468,54 +1480,97 @@ def gather_ops(steps, reps, ops_per_rep) -> float:
     return float(steps) * reps * 16 * 128 * ops_per_rep
 
 
-# The K5 and K6 bounds counted from the function, at the card's highest SM
-# clock: its float adds (K5 "mod": REPS an element) or multiply-adds (K6
-# "hermite_pair": 4 a bundle, a bundle every second repetition, so 2 REPS
-# an element) at the issue rate of the float pipes (128 a clock an SM; no
-# add is counted against the FMA-counted 67 TFLOP/s), and its distinct
-# gathers (the r & 3 index repeats every four repetitions: K5 4 an
-# element, K6 2 offsets x 2 planes) at 3.1 cycles a warp-wide shared
-# gather at random banks (K7's slope, PR 4); the bound is the larger.  The
-# joining adds of the 8 chains are left out.  PR 4 counted OPS_PER_REP
-# float32 operations per repetition and element at 67 TFLOP/s (K5 "mod"
-# 4, K6 "hermite_pair" 13): the index arithmetic and the gathers of every
-# repetition, where the function needs four gathers an element.  What the
-# compiled kernels execute (kernels/sass.gather_loops, the repetition
-# loop's body and the code outside every loop, experiments.gather_work) is
-# printed beside it as a diagnosis: on the H100 the loops hold adds or
-# multiply-adds alone, no LDS, and the code outside them what the function
-# does not need.
+# The K5, K6 and K7 bounds counted from the function, at the card's highest
+# SM clock: its float adds (K5 "mod": REPS an element) or multiply-adds (K6
+# and K7 "hermite_pair": 4 a bundle, a bundle every second repetition, so 2
+# REPS an element) at the issue rate of the float pipes (128 a clock an SM;
+# no add is counted against the FMA-counted 67 TFLOP/s), and its distinct
+# gathers of a 4-byte word at the shared memory's peak, one warp-wide
+# gather a clock an SM (32 banks of 4 bytes): K5 and K6 4 an element (the
+# r & 3 index repeats every four repetitions; K6 2 offsets x 2 planes), K7
+# REPS (its offset r / 2 - 1 is new at every bundle, 2 planes); the bound
+# is the larger.  The bank conflicts of a random index cost more cycles a
+# gather (K7's REPS slope: 3.1), but they are the kernel's, not the
+# card's floor.  The joining adds of the 8 chains are left out.  The first
+# count took OPS_PER_REP float32 operations per repetition and element at
+# 67 TFLOP/s (K5 "mod" 4, K6 and K7 "hermite_pair" 13), every repetition's
+# index arithmetic and gathers as work; it is printed beside.  What the
+# compiled kernels execute (kernels/sass.gather_loops,
+# experiments.gather_work) is printed beside it as a diagnosis
+# (floor_facts).
 FLOAT_PER_CLOCK = 128
-LDS_GATHER_CYCLES = 3.1
-GATHER_FUNCTION = {"mod": (1, 4), "hermite_pair": (2, 4)}  # /rep, distinct
+LDS_GATHERS_PER_CLOCK = 1     # warp-wide 4-byte gathers a clock an SM
+GATHER_FUNCTION = {          # reps -> (float ops an element, distinct gathers)
+    ("K5", "mod"): lambda reps: (reps, 4),
+    ("K6", "hermite_pair"): lambda reps: (2 * reps, 4),
+    ("K7", "hermite_pair"): lambda reps: (2 * reps, reps),
+}
 
 
-def gather_bound(label, mod, variant, counts, clock_mhz) -> list:
-    """The bound of ``variant`` of ``mod`` (K5, K6) counted from the
-    function, for :func:`bound`, with the compiled kernel's counts in
-    shared memory and the old count printed beside it."""
-    from ogl_beamforming_tpu_torch.experiments import (LANE, ROWS, WARP,
-                                                       gather_work)
+def gather_bound(label, kernel, mod, variant, reps, clock_mhz) -> list:
+    """The bound of ``variant`` of ``mod`` (K5, K6, K7: ``kernel``) at
+    ``reps`` repetitions and the module's STEPS, counted from the function,
+    for :func:`bound`; the first count printed beside it."""
+    from ogl_beamforming_tpu_torch.experiments import LANE, ROWS, WARP
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     per_s = clock_mhz * 1e6 * sms            # SM cycles a second
-    per_rep, distinct = GATHER_FUNCTION[variant]
+    per_elem, distinct = GATHER_FUNCTION[(kernel, variant)](reps)
     elements = mod.STEPS * ROWS * LANE
-    times = {"float": elements * per_rep * mod.REPS / FLOAT_PER_CLOCK / per_s,
-             "gathers": elements * distinct / WARP * LDS_GATHER_CYCLES / per_s}
+    times = {"float": elements * per_elem / FLOAT_PER_CLOCK / per_s,
+             "gathers": elements * distinct / WARP / LDS_GATHERS_PER_CLOCK
+             / per_s}
     by = max(times, key=times.get)
-    c = counts[(mod.VARIANT_IDS[variant], True)]
-    work = gather_work(c, mod.REPS, mod.STEPS)
-    old = gather_ops(mod.STEPS, mod.REPS, mod.OPS_PER_REP[variant])
+    old = gather_ops(mod.STEPS, reps, mod.OPS_PER_REP[variant])
     print(f"[micro] {label} bound from the function at {clock_mhz:g} MHz x "
-          f"{sms} SMs: {elements} elements x {per_rep * mod.REPS} float "
-          f"adds or multiply-adds and {distinct} distinct gathers -> "
+          f"{sms} SMs: {elements} elements x {per_elem} float adds or "
+          f"multiply-adds and {distinct} distinct gathers -> "
           + ", ".join(f"{k} {t * 1e3:.5f} ms" for k, t in times.items())
-          + f", set by {by}; the old count {old:.4g} float32 operations at "
-          f"67 TFLOP/s {old / PEAK_F32_PER_S * 1e3:.5f} ms; the compiled "
-          f"kernel (diagnosis): loop body {c['body']} for {c['step']} "
-          f"repetitions a turn, outside every loop {c['outside']}, a launch "
-          f"{work} warp instructions")
+          + f", set by {by}; the first count {old:.4g} float32 operations at "
+          f"67 TFLOP/s {old / PEAK_F32_PER_S * 1e3:.5f} ms")
     return [(times[by], 1.0)]
+
+
+def floor_facts(label, mod, variant, counts, smi_line) -> None:
+    """What the compiled gather_floor_kernel instantiation of ``variant``
+    (shared memory) is and executes at the module's REPS and STEPS: its
+    registers, spills, resident blocks a SM and grid (the occupancy query),
+    and per launch the warp instructions by kind, modelled from the SASS
+    (its static counts times the loops' turns and the units and threads
+    that run them, ``experiments.gather_work``; not an execution count);
+    fails unless the model gives a launch the function's warp FADD (K5
+    ``mod``: REPS an element) or FFMA (K6 ``hermite_pair``: 2 REPS an
+    element)."""
+    from ogl_beamforming_tpu_torch.experiments import (FLOOR_WARPS, LANE,
+                                                       ROWS, WARP,
+                                                       gather_grid,
+                                                       gather_work)
+    vid = mod.VARIANT_IDS[variant]
+    tag = f"gather_floor_kernelILi{vid}ELb1E"
+    regs = [v for k, v in BUILD_FACTS["usage"].items() if tag in k]
+    c = counts.get((vid, True))
+    check(len(regs) == 1 and c is not None and c["unit"] is not None,
+          f"{label}: no single ptxas entry or no unit loop for {tag}")
+    per_sm, grid = gather_grid(vid, True, mod.STEPS)
+    check(per_sm >= 2, f"{label}: {per_sm} blocks a SM, want at least 2")
+    work = gather_work(c, mod.REPS, mod.STEPS, grid)
+    op, per_elem = ("FADD", 1) if variant == "mod" else ("FFMA", 2)
+    want = mod.STEPS * ROWS * LANE * per_elem * mod.REPS // WARP
+    check(work[op] >= want, f"{label}: a launch executes {work[op]} warp "
+          f"{op} (modelled from the SASS), the function {want}")
+    short = ("instructions", "LDS", "LDG", "FADD", "FFMA", "integer",
+             "convert")
+    print(f"[micro] {label} gather_floor_kernel<{vid}, shared> ({smi_line}): "
+          f"{regs[0][0]} registers, {regs[0][1]} B spilled, {per_sm} blocks "
+          f"of {FLOOR_WARPS} warps resident a SM, grid {grid} for "
+          f"{mod.STEPS * ROWS} units; static SASS (kernels/sass.gather_loops)"
+          f" loop body {dict((k, c['body'][k]) for k in short)} for "
+          f"{c['step']} repetitions a turn, unit loop "
+          f"{dict((k, c['unit'][k]) for k in short)}, outside "
+          f"{dict((k, c['outside'][k]) for k in short)}; modelled from "
+          f"them, a launch executes {work[op]} warp {op} (the function's "
+          f"{want}), "
+          f"{work['convert']} conversions, {work['instructions']} warp "
+          "instructions")
 
 
 def print_gather_launches(label, res) -> None:
@@ -1526,24 +1581,48 @@ def print_gather_launches(label, res) -> None:
               f"{r['cycles_per_warp_gather']:.3f}" for k, r in res.items()))
 
 
-def gather_trace(label, row, fn, smi_line) -> None:
-    """The row's kernel time by the trace, without the enqueue its
-    CUDA-event time holds, and its bound share by it."""
+def gather_trace(label, row, fn, smi_line, kernel) -> None:
+    """The row's kernel time by the trace (kernels named ``kernel``),
+    without the enqueue its CUDA-event time holds, and its bound share by
+    it."""
     from ogl_beamforming_tpu_torch.experiments import traced_ms
-    row["trace_ms"] = traced_ms(fn, kernel="gather_kernel")
+    row["trace_ms"] = traced_ms(fn, kernel=kernel)
     print(f"[micro] {label} row ({smi_line}): events {row['ms']:.4f} ms "
           f"(IQR {row['iqr_ms']:.4f}), trace {row['trace_ms']:.4f} ms, bound "
           f"{row['bound_ms']:.4f} -> {row['bound_ms'] / row['trace_ms']:.1%} "
           "by the trace")
 
 
+K5_REPS_SLOPE = (8, 64, 128)
+
+
+def reps_slope(label, row, launch, smi_line) -> None:
+    """``launch(reps)`` by the trace at each of K5_REPS_SLOPE, and the
+    least-squares line through them: ms a repetition (the adds) and the
+    intercept at no repetition (launch, staging, set-up, stores)."""
+    from ogl_beamforming_tpu_torch.experiments import traced_ms
+    ms = [traced_ms(lambda r=r: launch(r), kernel="gather_floor_kernel")
+          for r in K5_REPS_SLOPE]
+    slope, intercept = np.polyfit(np.asarray(K5_REPS_SLOPE, np.float64),
+                                  np.asarray(ms, np.float64), 1)
+    row["reps_slope_ms"], row["reps_intercept_ms"] = float(slope), \
+        float(intercept)
+    print(f"[micro] {label} by the trace at REPS {list(K5_REPS_SLOPE)} "
+          f"({smi_line}): " + ", ".join(f"{t:.5f}" for t in ms)
+          + f" ms -> slope {slope * 1e3:.4f} us a repetition, intercept "
+          f"{intercept * 1e3:.4f} us; at REPS 64 the line gives "
+          f"{(intercept + 64 * slope) * 1e3:.4f} us, the adds alone "
+          f"{64 * slope * 1e3:.4f}")
+
+
 def phase_micro_gather(dev, smi_line, counts,
                        clock_mhz) -> list[tuple[dict, int]]:
     """K5, K6, K7: every variant in both memory spaces against its plain
     version, the sweeps, and one row each (timed through the launcher, past
-    the wrapper's index check, and by the trace); K5's and K6's bounds from
-    the function at ``clock_mhz``, ``counts`` (kernels/sass.gather_loops)
-    printed beside them."""
+    the wrapper's index check, and by the trace); the bounds from the
+    function at ``clock_mhz``, and for K5 and K6 what the compiled kernel
+    executes (``counts``, kernels/sass.gather_loops) beside them; K5's REPS
+    slope by the trace."""
     from ogl_beamforming_tpu_torch.experiments import (gather_micro,
                                                        gather_micro2,
                                                        gather_micro3,
@@ -1573,9 +1652,13 @@ def phase_micro_gather(dev, smi_line, counts,
     row = kernel_row(
         "micro_gather_k5", "micro_gather.cu", "experiments/gather_micro.py:56",
         err, ms, plain, TILE_BYTES, gather_bound(
-            "K5 mod, shared", gather_micro, "mod", counts, clock_mhz),
-        iqr=iqr)
-    gather_trace("K5 mod, shared", row, k5, smi_line)
+            "K5 mod, shared", "K5", gather_micro, "mod", gather_micro.REPS,
+            clock_mhz), iqr=iqr)
+    floor_facts("K5 mod", gather_micro, "mod", counts, smi_line)
+    gather_trace("K5 mod, shared", row, k5, smi_line, "gather_floor_kernel")
+    reps_slope("K5 mod, shared", row, lambda reps: launch_gather(
+        gather_micro.VARIANT_IDS["mod"], x["src"], x["src"], x["idx"],
+        x["src"], reps, gather_micro.STEPS, True), smi_line)
     out.append((row, n))
 
     # K6
@@ -1605,9 +1688,12 @@ def phase_micro_gather(dev, smi_line, counts,
     row = kernel_row(
         "micro_gather_k6", "micro_gather.cu",
         "experiments/gather_micro2.py:136", err, ms, plain, TILE_BYTES,
-        gather_bound("K6 hermite_pair, shared", gather_micro2,
-                       "hermite_pair", counts, clock_mhz), iqr=iqr)
-    gather_trace("K6 hermite_pair, shared", row, k6, smi_line)
+        gather_bound("K6 hermite_pair, shared", "K6", gather_micro2,
+                     "hermite_pair", gather_micro2.REPS, clock_mhz), iqr=iqr)
+    floor_facts("K6 hermite_pair", gather_micro2, "hermite_pair", counts,
+                smi_line)
+    gather_trace("K6 hermite_pair, shared", row, k6, smi_line,
+                 "gather_floor_kernel")
     out.append((row, n))
 
     # K7: every variant at the largest REPS, then the slope sweep
@@ -1644,9 +1730,11 @@ def phase_micro_gather(dev, smi_line, counts,
     row = kernel_row(
         "micro_gather_k7", "micro_gather.cu",
         "experiments/gather_micro3.py:105", err, ms, plain, TILE_BYTES,
-        gather_ops(gather_micro3.STEPS, reps,
-                   gather_micro3.OPS_PER_REP["hermite_pair"]), iqr=iqr)
-    gather_trace(f"K7 hermite_pair, shared, REPS {reps}", row, k7, smi_line)
+        gather_bound(f"K7 hermite_pair, shared, REPS {reps}", "K7",
+                     gather_micro3, "hermite_pair", reps, clock_mhz),
+        iqr=iqr)
+    gather_trace(f"K7 hermite_pair, shared, REPS {reps}", row, k7, smi_line,
+                 "gather_kernel")
     out.append((row, n))
     return out
 
@@ -1937,7 +2025,7 @@ def phase_micro(dev, smi_line) -> list[dict]:
         names.update({i: f"{label} {v}" for v, i in mod.VARIANT_IDS.items()})
     loads = sass_loads(build.library_path())
     print("[micro] static loads in the compiled gather kernels (cuobjdump "
-          "-sass; LDS/LDG; the loop body holds 8 repetitions x 2 elements): "
+          "-sass; LDS/LDG in the whole function): "
           + "; ".join(f"{names.get(k, k)} {'shared' if sm else 'global'} "
                       f"{n_lds}/{n_ldg}"
                       for (k, sm), (n_lds, n_ldg) in sorted(
@@ -2435,28 +2523,57 @@ def phase_serve(dev, smi_line, streamed_ms) -> None:
           f"(phase 8, this process) {streamed_ms:.3f} ms/frame; {smi_line}")
 
 
+def print_lost(phases: str, caught: list) -> None:
+    """The traces of ``phases`` that lack a kernel event their call launched
+    (utils/profiling.device_time warns of each, naming the kernel and the
+    call; ``caught`` holds the warnings since the last call, and is
+    emptied), or that none did: roadmap item C2.  Other warnings are shown
+    as they would have been."""
+    from ogl_beamforming_tpu_torch.utils.profiling import LostKernelEvents
+    lines = []
+    for w in caught:
+        if issubclass(w.category, LostKernelEvents):
+            lines.append(str(w.message))
+        else:
+            sys.stderr.write(warnings.formatwarning(
+                w.message, w.category, w.filename, w.lineno))
+    caught.clear()
+    print(f"[trace] phases {phases}: " + (
+        f"{len(lines)} traces lack a launched kernel's event: "
+        + "; ".join(lines) if lines else
+        "every launch of the port's kernels in a trace has its event"))
+
+
 def main() -> None:
     name, smi_line = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
-    rows = phase_kernels(dev) + phase_kernels_volumes(dev)
-    fir_launches = phase_canary(dev)
-    launches = phase_main(dev)
-    launches.update(phase_main_rca(dev))
-    demod = phase_main_demod(dev)
-    launches["demodulate"] = demod["demodulate"]
-    launches["das_forces_iq"] = demod["das_forces"]
-    launches["decode_hadamard_f32"] = demod["decode_hadamard"]
-    launches["fir"] = fir_launches["fir"]
-    launches["das_hercules"] = phase_main_hercules(dev)["das_hercules"]
-    launches["das_forces_coh3d"] = phase_main_uforces(dev)["das_forces"]
-    launches["das_rca_fb4"] = phase_main_batch(dev)["das_rca_fb4"]
-    for row in rows:
-        row["launches"] = launches[row["name"]]
-    rows += phase_micro(dev, smi_line)
-    phase_trace(dev)
-    phase_filter_traces()
-    phase_serve(dev, smi_line, phase_stream(dev, smi_line))
+    from ogl_beamforming_tpu_torch.utils.profiling import LostKernelEvents
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", LostKernelEvents)
+        rows = phase_kernels(dev) + phase_kernels_volumes(dev)
+        fir_launches = phase_canary(dev)
+        launches = phase_main(dev)
+        launches.update(phase_main_rca(dev))
+        demod = phase_main_demod(dev)
+        launches["demodulate"] = demod["demodulate"]
+        launches["das_forces_iq"] = demod["das_forces"]
+        launches["decode_hadamard_f32"] = demod["decode_hadamard"]
+        launches["fir"] = fir_launches["fir"]
+        launches["das_hercules"] = phase_main_hercules(dev)["das_hercules"]
+        launches["das_forces_coh3d"] = phase_main_uforces(dev)["das_forces"]
+        launches["das_rca_fb4"] = phase_main_batch(dev)["das_rca_fb4"]
+        for row in rows:
+            row["launches"] = launches[row["name"]]
+        print_lost("1-5", caught)
+        rows += phase_micro(dev, smi_line)
+        print_lost("6", caught)
+        phase_trace(dev)
+        phase_filter_traces()
+        print_lost("7", caught)
+        streamed = phase_stream(dev, smi_line)
+        print_lost("8", caught)
+    phase_serve(dev, smi_line, streamed)
     for row in rows:
         check(row["launches"] > 0, f"{row['name']} never launched on its path")
     print(json.dumps({"kernels": rows}))

@@ -13,9 +13,10 @@ several launches, and the least-squares slope of time over a swept
 repetition count, in which constant terms (launch, prologue, store) cancel.
 A launch shorter than its enqueue is timed from the profiler's kernel
 durations instead (:func:`traced_ms`).
-A TPU grid ran its steps in order on one core; here the steps are blocks
-that run side by side on every SM, so a time converts to cycles per unit of
-work as ``time * SM clock * SMs / work``.
+A TPU grid ran its steps in order on one core; here the steps run side by
+side on every SM (a block each, or K5's and K6's units spread over a
+persistent grid), so a time converts to cycles per unit of work as ``time *
+SM clock * SMs / work``.
 """
 
 from __future__ import annotations
@@ -58,7 +59,10 @@ def traced_ms(fn, iters: int = 20, kernel: str | None = None) -> float:
     ``torch.profiler`` trace of ``iters`` calls (``utils.profiling``): the
     device's own durations, without the host's launch gaps that a CUDA-event
     time of launches shorter than their enqueue holds.  ``kernel``: count
-    only the kernels whose name holds it (raises if the trace has none)."""
+    only the kernels whose name holds it (raises if the trace has none),
+    over the calls whose events the trace holds: a trace that lost some
+    (``DeviceProfile.lost``) gives the mean of the others, not a share of
+    ``iters`` too small."""
     from ..utils.profiling import device_time
 
     def run():
@@ -66,13 +70,15 @@ def traced_ms(fn, iters: int = 20, kernel: str | None = None) -> float:
             out = fn()
         return out
 
+    run.__qualname__ = f"{iters} calls of {getattr(fn, '__qualname__', fn)}"
     prof = device_time(run)
     if kernel is None:
         return prof.module_seconds * 1e3 / iters
     times = [t for name, _, t in prof.kernels if kernel in name]
     if not times:
-        raise RuntimeError(f"no {kernel} kernel events in the trace")
-    return sum(times) * 1e3 / iters
+        raise RuntimeError(f"no {kernel} kernel events in the trace"
+                           + "".join(f"; {line}" for line in prof.lost))
+    return sum(times) * 1e3 / min(len(times), iters)
 
 
 def call_times(fns: dict, runs: int = 21) -> dict:
@@ -174,21 +180,103 @@ def max_sm_clock_mhz() -> float:
     return float(out.stdout.strip().splitlines()[0])
 
 
-GATHER_THREADS = 1024   # threads a block of csrc/micro_gather.cu
+def compile_source(text: str, tag: str, entry: str):
+    """``text`` (a ``csrc`` source whose C entry point ``entry`` has the
+    library's signature) compiled alone with the library's nvcc flags into
+    a library of its own under ``_build/``, named by ``tag`` and its hash,
+    and loaded: the A/B harnesses' other sources and ablations."""
+    import ctypes
+    import hashlib
+
+    from ..kernels import build
+    digest = hashlib.sha256(text.encode()).hexdigest()[:16]
+    out = build.BUILD_DIR / f"{entry}_{tag}_{digest}.so"
+    if not out.exists():
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = out.with_suffix(".cu")
+        src.write_text(text)
+        proc = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-shared",
+                               "-o", str(out), str(src)],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise build.KernelBuildError(f"nvcc {tag}:\n{proc.stdout}"
+                                         f"{proc.stderr}")
+    lib = ctypes.CDLL(str(out))
+    fn = getattr(lib, entry)
+    fn.argtypes = build.SIGNATURES[entry]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def ab_sources(cu_name: str, others: list[str], ablations: dict) -> dict:
+    """{label: source text}: the ``LABEL=PATH`` sources of ``others``, this
+    tree's ``csrc/<cu_name>`` ("change"), and each ablation of it
+    (``{name: [(text of the source, its replacement)]}``), every replaced
+    text found once in the source."""
+    from ..kernels import build
+    mine = (build.CSRC_DIR / cu_name).read_text()
+    out = {}
+    for other in others:
+        label, path = other.split("=", 1)
+        out[label] = Path(path).read_text()
+    out["change"] = mine
+    for name, edits in ablations.items():
+        text = mine
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise ValueError(f"ablation {name}: {old!r} not once in "
+                                 f"{cu_name}")
+            text = text.replace(old, new)
+        out[name] = text
+    return out
+
+
+GATHER_THREADS = 1024   # threads a block of gather_kernel (K7)
 GATHER_CHAINS = 8       # repetitions in one turn of its loop body
+FLOOR_VARIANTS = 12     # ids of gather_floor_kernel (K5, K6): 0 .. 11
+FLOOR_WARPS = 8         # warps a block of gather_floor_kernel
+FLOOR_UNITS = 16        # its units a step: a unit is a warp's 128 elements
 
 
-def gather_work(counts: dict, reps: int, steps: int) -> dict:
+def gather_work(counts: dict, reps: int, steps: int,
+                grid: int | None = None) -> dict:
     """The warp-wide instructions that one launch of a gather kernel
     executes, by kind, from the static counts of its instantiation
-    (``kernels.sass.gather_loops``): ``steps`` blocks of GATHER_THREADS
-    threads, each turning the repetition loop ``reps / step`` times (step
-    GATHER_CHAINS where the counts hold none) and running the code outside
-    every loop once."""
-    warps = steps * GATHER_THREADS // WARP
+    (``kernels.sass.gather_loops``), each repetition loop turning ``reps /
+    step`` times (step GATHER_CHAINS where the counts hold none).
+    ``gather_kernel`` (K7; counts without a unit loop): ``steps`` blocks of
+    GATHER_THREADS threads, each turning the repetition loop once and
+    running the code outside every loop once.  ``gather_floor_kernel`` (K5,
+    K6): ``grid`` blocks of FLOOR_WARPS warps, each running the code
+    outside every loop once, and ``steps * FLOOR_UNITS`` units (a row of
+    a step, one warp's), each running the unit loop's own code and the
+    repetition loop once."""
     turns = reps // (counts["step"] or GATHER_CHAINS)
-    return {k: warps * (counts["outside"][k] + turns * v)
+    if counts.get("unit") is None:
+        warps = steps * GATHER_THREADS // WARP
+        return {k: warps * (counts["outside"][k] + turns * v)
+                for k, v in counts["body"].items()}
+    if grid is None:
+        raise ValueError("gather_floor_kernel's work needs its grid")
+    warps, units = grid * FLOOR_WARPS, steps * FLOOR_UNITS
+    return {k: warps * counts["outside"][k]
+            + units * (counts["unit"][k] + turns * v)
             for k, v in counts["body"].items()}
+
+
+def gather_grid(variant_id: int, smem: bool, steps: int) -> tuple[int, int]:
+    """(blocks a SM holds, grid) of the launch ``micro_gather`` makes for
+    K5/K6 ``variant_id`` (below FLOOR_VARIANTS) at ``steps`` on the current
+    card, without launching (``micro_gather_grid``)."""
+    import ctypes
+
+    from ..kernels import build
+    per_sm, grid = ctypes.c_int(0), ctypes.c_int(0)
+    code = build.library().micro_gather_grid(
+        variant_id, int(smem), steps, ctypes.byref(per_sm),
+        ctypes.byref(grid))
+    build.check("micro_gather_grid", code)
+    return per_sm.value, grid.value
 
 
 def cycles_per_warp_op(seconds: float, clock_mhz: float, sms: int,
@@ -241,16 +329,21 @@ ROWS = 16
 
 
 def check_gather_args(src, src2, idx, w, int_src: bool) -> None:
-    """Shapes, types, one device, and an index tile inside the source row
-    for every offset the variants add before masking (0 .. LANE - 4): the
-    kernels read the tile at these indices.  Reads ``idx`` back (a
-    synchronise), so a timing loop checks once and launches many."""
+    """Shapes, types, one device, 16-byte aligned tiles (the K5/K6 kernel
+    reads them as 16-byte words and stages them by bulk copy), and an index
+    tile inside the source row for every offset the variants add before
+    masking (0 .. LANE - 4): the kernels read the tile at these indices.
+    Reads ``idx`` back (a synchronise), so a timing loop checks once and
+    launches many."""
     dtype = torch.int32 if int_src else torch.float32
     check_tile("src", src, (ROWS, LANE), dtype)
     check_tile("src2", src2, (ROWS, LANE), dtype)
     check_tile("w", w, (ROWS, LANE), torch.float32)
     check_tile("idx", idx, (ROWS, LANE), torch.int32)
     check_cuda(src, src2, idx, w)
+    for name, t in (("src", src), ("src2", src2), ("w", w), ("idx", idx)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     lo, hi = int(idx.min()), int(idx.max())
     if lo < 0 or hi > LANE - 4:
         raise ValueError(f"idx must lie in [0, {LANE - 4}], got [{lo}, {hi}]")
@@ -258,10 +351,12 @@ def check_gather_args(src, src2, idx, w, int_src: bool) -> None:
 
 def launch_gather(variant_id: int, src, src2, idx, w, reps: int, steps: int,
                   smem: bool) -> torch.Tensor:
-    """One launch of ``micro_gather``: ``steps`` blocks, each computing the
-    (ROWS, LANE) tile of variant ``variant_id`` over ``reps`` repetitions,
-    gathering from shared memory (``smem``) or through ``__ldg`` from
-    device memory.  Arguments checked by :func:`check_gather_args`."""
+    """One launch of ``micro_gather``: ``steps`` times the (ROWS, LANE)
+    tile of variant ``variant_id`` over ``reps`` repetitions, gathering from
+    shared memory (``smem``) or through ``__ldg`` from device memory; K5
+    and K6 (ids below FLOOR_VARIANTS) on a persistent grid
+    (:func:`gather_grid`), K7 a block a step.  Arguments checked by
+    :func:`check_gather_args`."""
     from ..kernels import build
     if reps <= 0 or reps % 8 or steps <= 0:
         raise ValueError(f"reps must be a positive multiple of 8 and steps "
@@ -272,7 +367,8 @@ def launch_gather(variant_id: int, src, src2, idx, w, reps: int, steps: int,
         idx.data_ptr(), w.data_ptr(), out.data_ptr(), reps, steps,
         torch.cuda.current_stream(src.device).cuda_stream)
     build.check("micro_gather", code)
-    build.count_launch("micro_gather")
+    build.count_launch("micro_gather", "gather_floor_kernel"
+                       if variant_id < FLOOR_VARIANTS else "gather_kernel")
     return out
 
 
@@ -291,7 +387,7 @@ def launch_gather_hermite(k8: bool, src, src2, idx, w, units: int,
         w.data_ptr(), out.data_ptr(), units, steps,
         torch.cuda.current_stream(src.device).cuda_stream)
     build.check("micro_gather_hermite", code)
-    build.count_launch("micro_gather")
+    build.count_launch("micro_gather", "hermite_kernel")
     return out
 
 
@@ -381,7 +477,7 @@ def launch_onehot(rf, k, wt, units: int, k8: bool, steps: int):
         out.data_ptr(), units, steps,
         torch.cuda.current_stream(rf.device).cuda_stream)
     build.check("micro_onehot", code)
-    build.count_launch("micro_onehot")
+    build.count_launch("micro_onehot", "onehot_kernel")
     return out
 
 
@@ -459,10 +555,11 @@ def sass_loads(library_path) -> dict:
     """Static counts of shared-memory loads (``LDS``) and device-memory
     loads (``LDG``) in each gather kernel of the built library, from
     ``cuobjdump -sass``: ``{(variant id, shared memory): (LDS, LDG)}`` for
-    ``gather_kernel`` and ``{("hermite K8" | "hermite K9", shared memory):
-    ...}`` for ``hermite_kernel``.  The repetition loop's body holds 8
-    repetitions of 2 elements, so a variant whose gathers all survive
-    compilation shows 16 loads per gather of its bundle there."""
+    ``gather_floor_kernel`` (K5, K6) and ``gather_kernel`` (K7) and
+    ``{("hermite K8" | "hermite K9", shared memory): ...}`` for
+    ``hermite_kernel``.  Counted over the whole function: where the
+    compiler loads a gather once outside the repetition loop, it counts
+    once."""
     tool = shutil.which("cuobjdump") or str(
         Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
         / "cuobjdump")
@@ -474,7 +571,8 @@ def sass_loads(library_path) -> dict:
     for line in text.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            m = re.search(r"gather_kernelILi(\d+)ELb([01])E", name)
+            m = re.search(r"gather_(?:floor_)?kernelILi(\d+)ELb([01])E",
+                          name)
             h = re.search(r"hermite_kernelILb([01])ELb([01])E", name)
             if m:
                 key = (int(m.group(1)), m.group(2) == "1")

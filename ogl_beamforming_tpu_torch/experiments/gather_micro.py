@@ -2,13 +2,14 @@
 
 The counterpart of ``experiments/gather_micro.py``: REPS = 64 gathers per
 element of a (16, 128) float32 tile at index ``idx + (r & 3)`` into 8
-chains, in STEPS = 512 blocks, with the index clipped (``clip``), masked
+chains, for STEPS = 512 grid steps (the port's persistent kernel takes
+every step's elements), with the index clipped (``clip``), masked
 (``mod``) or taken as it is (``raw``), against a multiply-add control
 (``fma``: ``src * (idx + r)``).  Each is timed alone, by CUDA events
 around its launches and by its kernel time in a profiler trace.  The
-``r & 3`` index repeats every four repetitions, so the compiler may load
-each of the four gathers once (``csrc/micro_gather.cu``): these variants
-measure fewer gathers than they name.  Run on the card:
+``r & 3`` index repeats every four repetitions, so the compiler loads
+each of the four gathers once an element-step (``csrc/micro_gather.cu``):
+these variants measure fewer gathers than they name.  Run on the card:
 
     python -m ogl_beamforming_tpu_torch.experiments.gather_micro
 """

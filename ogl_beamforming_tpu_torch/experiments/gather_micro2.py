@@ -2,8 +2,9 @@
 
 The counterpart of ``experiments/gather_micro2.py``: eight variants of the
 gather bundle, REPS = 64 repetitions per element of a (16, 128) tile into 8
-chains, in STEPS = 512 blocks, each timed alone, by CUDA events around its launches and by its
-kernel time in a profiler trace (no sweep):
+chains, for STEPS = 512 grid steps (the port's persistent kernel takes
+every step's elements), each timed alone, by CUDA events around its
+launches and by its kernel time in a profiler trace (no sweep):
 
   f32_direct        float32 source, index (idx + (r & 3)) & 127
   i32_direct        the same with an int32 source
@@ -16,9 +17,9 @@ kernel time in a profiler trace (no sweep):
                     4 multiply-adds: the DAS cubic tap
   hermite_same_src  hermite_pair with both gathers from one plane (rc, rc+1)
 
-The ``r & 3`` indices repeat every four repetitions, so the compiler may
-load each of the four gathers once (``csrc/micro_gather.cu``): such a
-variant measures fewer gathers than it names.  Run on the card:
+The ``r & 3`` indices repeat every four repetitions, so the kernel loads
+each of the four gathers once an element-step (``csrc/micro_gather.cu``):
+such a variant measures fewer gathers than it names.  Run on the card:
 
     python -m ogl_beamforming_tpu_torch.experiments.gather_micro2
 """

@@ -26,17 +26,14 @@ Run on the card, from the repository root:
 from __future__ import annotations
 
 import argparse
-import ctypes
-import hashlib
 import json
 import statistics
-import subprocess
-from pathlib import Path
 
 import torch
 
-from . import (ONEHOT_BATCHES, call_times, card, check_onehot_args,
-               onehot_ref, require_gpu, traced_ms)
+from . import (ONEHOT_BATCHES, ab_sources, call_times, card,
+               check_onehot_args, compile_source, onehot_ref, require_gpu,
+               traced_ms)
 from . import onehot_micro, onehot_micro2
 
 ABLATIONS = {
@@ -50,48 +47,14 @@ FORMS = {"K8": (True, onehot_micro.UNITS, onehot_micro.STEPS),
          "K9": (False, onehot_micro2.UNITS_SWEEP[-1], onehot_micro2.STEPS)}
 
 
-def compile_source(text: str, tag: str) -> ctypes.CDLL:
-    """``text`` (a ``micro_onehot.cu``) compiled alone into a library under
-    ``_build/``, named by its hash, and loaded."""
-    from ..kernels import build
-    digest = hashlib.sha256(text.encode()).hexdigest()[:16]
-    out = build.BUILD_DIR / f"onehot_{tag}_{digest}.so"
-    if not out.exists():
-        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        src = out.with_suffix(".cu")
-        src.write_text(text)
-        proc = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-shared",
-                               "-o", str(out), str(src)],
-                              capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise build.KernelBuildError(f"nvcc {tag}:\n{proc.stdout}"
-                                         f"{proc.stderr}")
-    lib = ctypes.CDLL(str(out))
-    lib.micro_onehot.argtypes = build.SIGNATURES["micro_onehot"]
-    lib.micro_onehot.restype = ctypes.c_int
-    return lib
-
-
 def sources(others: list[str], ablations: bool) -> dict:
     """{label: (source text, checked)}: the ``LABEL=PATH`` sources of
-    ``others``, this tree's source ("change") and the ablations of it."""
-    from ..kernels import build
-    mine = (build.CSRC_DIR / "micro_onehot.cu").read_text()
-    out = {}
-    for other in others:
-        label, path = other.split("=", 1)
-        out[label] = (Path(path).read_text(), True)
-    out["change"] = (mine, True)
-    if ablations:
-        for name, edits in ABLATIONS.items():
-            text = mine
-            for old, new in edits:
-                if old not in text:
-                    raise ValueError(f"ablation {name}: {old!r} not in the "
-                                     "source")
-                text = text.replace(old, new)
-            out[name] = (text, False)
-    return out
+    ``others``, this tree's ``micro_onehot.cu`` ("change") and, with
+    ``ablations``, the ablations of it, whose outputs are not checked."""
+    return {label: (text, label not in ABLATIONS)
+            for label, text in ab_sources(
+                "micro_onehot.cu", others,
+                ABLATIONS if ablations else {}).items()}
 
 
 def measure(libs: dict, x: dict) -> dict:
@@ -150,7 +113,7 @@ def main(argv=None, device="cuda") -> dict:
     dev = require_gpu(device)
     x = onehot_micro.make_inputs(dev)
     print(json.dumps(card()), flush=True)
-    libs = {label: (compile_source(text, label), checked)
+    libs = {label: (compile_source(text, label, "micro_onehot"), checked)
             for label, (text, checked) in sources(args.source,
                                                   args.ablations).items()}
     results = measure(libs, x)

@@ -77,7 +77,7 @@ def launch_i8_mma(body: int, a, b, out_dtype, scale=1.0) -> torch.Tensor:
     build.check("micro_i8_mma", build.library().micro_i8_mma(
         body, a.data_ptr(), b.data_ptr(), out.data_ptr(), k, n,
         scale, torch._C._cuda_getCurrentRawStream(a.device.index)))
-    build.count_launch("micro_i8")
+    build.count_launch("micro_i8", "i8_mma_kernel")
     return out
 
 

@@ -110,7 +110,8 @@ def k(body: str, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     build.check("micro_i8_elementwise", build.library().micro_i8_elementwise(
         _ELEMENTWISE[body], h.data_ptr(), x.data_ptr(), out.data_ptr(), a,
         bs, torch._C._cuda_getCurrentRawStream(x.device.index)))
-    build.count_launch("micro_i8")
+    build.count_launch("micro_i8", "i8_rowsum_kernel" if body == "rowsum"
+                       else "i8_elementwise_kernel")
     return out
 
 

@@ -41,14 +41,30 @@ of four frames of a batch), ``demodulate``, ``fir``, and the
 microbenchmarks' ``micro_gather`` (K5-K7 and the gather bundle of K8-K9),
 ``micro_onehot`` (K8-K9) and ``micro_i8`` (K10-K11)."""
 
+KERNEL_LAUNCHES: collections.Counter = collections.Counter()
+"""The same launches by the name their kernel shows in a profiler trace (a
+piece of it, such as ``das_forces_kernel``), as each launch site gives it
+to :func:`count_launch`."""
+
+
 _LAUNCH_LOCK = threading.Lock()
 
 
-def count_launch(name: str) -> None:
-    """Add one to ``LAUNCHES[name]``, under a lock: a streaming session's
-    worker thread launches kernels beside the caller's thread."""
+def count_launch(name: str, kernel: str | None = None) -> None:
+    """Add one to ``LAUNCHES[name]`` and, where the launch site names the
+    kernel as a trace shows it, to ``KERNEL_LAUNCHES[kernel]``, under a
+    lock: a streaming session's worker thread launches kernels beside the
+    caller's thread."""
     with _LAUNCH_LOCK:
         LAUNCHES[name] += 1
+        if kernel is not None:
+            KERNEL_LAUNCHES[kernel] += 1
+
+
+def kernel_launches() -> dict:
+    """A copy of :data:`KERNEL_LAUNCHES`, taken under the same lock."""
+    with _LAUNCH_LOCK:
+        return dict(KERNEL_LAUNCHES)
 
 
 _P = ctypes.c_void_p
@@ -81,6 +97,8 @@ SIGNATURES = {
     # microbenchmarks (experiments/): variant, shared memory, src, src2,
     # idx, w, out, reps, steps, stream
     "micro_gather": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _P],
+    # variant, shared memory, steps, int* blocks a SM, int* grid
+    "micro_gather_grid": [_I, _I, _I, _P, _P],
     # K8 form, shared memory, src, src2, idx, w, out, units, steps, stream
     "micro_gather_hermite": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _P],
     # B, K8 form, rf, k, wt, out, units, steps, stream

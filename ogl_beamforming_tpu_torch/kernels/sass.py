@@ -31,16 +31,19 @@ kernels (``decode_i8_kernel``, ``i8_mma_kernel``) whole: its instructions,
 MMAs, ``ldmatrix``, ``cp.async`` and the rest of :data:`I8_OPS`.
 ``--source F.cu --same-as G.cu`` also says, for each int8 kernel and each
 instantiation of the filter kernels (``demodulate_kernel``, ``fir_kernel``)
-that both compile, whether its SASS is the same instruction for
-instruction (the decode kernel of an older ``decode.cu`` against the
-current one, say):
+and of K7's and the K8/K9 bundle's gather kernels (``gather_kernel``,
+``hermite_kernel``) that both compile, whether its SASS is the same
+instruction for instruction (the decode kernel of an older ``decode.cu``
+against the current one, say):
 
     python -m ogl_beamforming_tpu_torch.kernels.sass \
         --source ogl_beamforming_tpu_torch/csrc/decode.cu --same-as OLD.cu
 
-:func:`gather_loops` counts the repetition loop of each instantiation of
-``gather_kernel`` (``csrc/micro_gather.cu``, K5-K7) by kind of instruction,
-for the microbenchmarks' bounds.
+:func:`gather_loops` counts the repetition loop, the unit loop around it
+and the code outside every loop of each instantiation of
+``gather_floor_kernel`` (K5, K6) and ``gather_kernel`` (K7)
+(``csrc/micro_gather.cu``) by kind of instruction, for the
+microbenchmarks' diagnosis.
 """
 
 from __future__ import annotations
@@ -301,34 +304,42 @@ GATHER_INTEGER = ("IADD3", "IMAD", "ISETP", "LOP3", "SHF", "LEA", "SEL",
                   "IMNMX", "VIMNMX", "PRMT", "IABS", "MOV")
 GATHER_CONVERT = ("I2F", "F2I", "I2FP", "F2IP")
 """The kinds of instruction that :func:`gather_loops` counts: float adds
-and products, integer and move instructions, and conversions."""
-_GATHER = re.compile(r"gather_kernelILi(\d+)ELb([01])E")
+and products (also each of the three alone), integer and move
+instructions, and conversions."""
+_GATHER = re.compile(r"gather_(floor_)?kernelILi(\d+)ELb([01])E")
 
 
-_STEP = re.compile(r"^U?IADD3\s+(U?R\d+),\s*\1,\s*(0x[0-9a-f]+|\d+)\s*,")
+_STEP = re.compile(r"^(?:U?IADD3|VIADD)\s+(U?R\d+),\s*\1,\s*(0x[0-9a-f]+|\d+)"
+                   r"\s*(?:,|$)")
+
+
+def _gather_counts(ops) -> dict:
+    kinds = [o.split(".")[0] for o in ops]
+    return {"instructions": len(ops),
+            "LDS": kinds.count("LDS"), "LDG": kinds.count("LDG"),
+            "float": sum(k in GATHER_FLOAT for k in kinds),
+            **{k: kinds.count(k) for k in GATHER_FLOAT},
+            "integer": sum(k in GATHER_INTEGER for k in kinds),
+            "convert": sum(k in GATHER_CONVERT for k in kinds)}
 
 
 def gather_loops(text: str) -> dict:
     """{(variant id, shared memory): counts} of every instantiation of
-    ``gather_kernel`` (``csrc/micro_gather.cu``) in ``text``.  ``body``:
-    the repetition loop (of the loops with float arithmetic, the one with
-    the most; loops nested in it left out), its instructions and of them
-    ``LDS``, ``LDG``, ``float`` (:data:`GATHER_FLOAT`), ``integer``
-    (:data:`GATHER_INTEGER`) and ``convert`` (:data:`GATHER_CONVERT`);
-    ``step``: the repetitions a turn of it takes (the immediate its counter
-    adds: 8 a turn of the source's loop, more where the compiler unrolled
-    it; None where no counter adds an immediate); ``outside``: the same
-    counts of the instructions in no loop, each executed once a warp (so
-    the staging loop, and a remainder loop no launch here enters, are left
-    out: a lower bound)."""
-    def counts(ops):
-        kinds = [o.split(".")[0] for o in ops]
-        return {"instructions": len(ops),
-                "LDS": kinds.count("LDS"), "LDG": kinds.count("LDG"),
-                "float": sum(k in GATHER_FLOAT for k in kinds),
-                "integer": sum(k in GATHER_INTEGER for k in kinds),
-                "convert": sum(k in GATHER_CONVERT for k in kinds)}
-
+    ``gather_floor_kernel`` (K5, K6) and ``gather_kernel`` (K7)
+    (``csrc/micro_gather.cu``) in ``text``.  ``body``: the repetition loop
+    (of the innermost loops with float arithmetic, the one with the most),
+    its instructions and of them ``LDS``, ``LDG``, ``float``
+    (:data:`GATHER_FLOAT`; also ``FADD``, ``FMUL`` and ``FFMA`` alone),
+    ``integer`` (:data:`GATHER_INTEGER`) and ``convert``
+    (:data:`GATHER_CONVERT`); ``step``: the repetitions a turn of it takes
+    (the immediate its counter adds: 8 a turn of the source's loop, more
+    where the compiler unrolled it; None where no counter adds an
+    immediate); ``unit``: the same counts of the innermost loop around it
+    (``gather_floor_kernel``'s loop over a warp's units), without the loops
+    nested in it, each executed once a unit; None where no loop holds the
+    repetition loop; ``outside``: the same counts of the instructions in no
+    loop, each executed once a warp (so the staging loop or wait, and a
+    remainder loop no launch here enters, are left out: a lower bound)."""
     out = {}
     for name, (instrs, labels) in functions(text).items():
         m = _GATHER.search(name)
@@ -344,44 +355,59 @@ def gather_loops(text: str) -> dict:
             if target is not None and target <= addr:
                 loops.append((target, addr))
 
-        def in_loop(a, skip=None):
-            return any(lo <= a <= hi for lo, hi in loops if (lo, hi) != skip)
+        def within(lh, outer):
+            return outer[0] <= lh[0] and lh[1] <= outer[1] and lh != outer
 
-        def floats(lo, hi):
-            return sum(lo <= a <= hi and _op(ins).split(".")[0]
-                       in GATHER_FLOAT for a, ins in instrs)
+        def own(lh):
+            """The instructions of loop ``lh`` outside the loops in it."""
+            return [_op(ins) for a, ins in instrs if lh[0] <= a <= lh[1]
+                    and not any(lo <= a <= hi for lo, hi in loops
+                                if within((lo, hi), lh))]
 
-        main = max(loops, key=lambda lh: floats(*lh), default=None)
-        body = [] if main is None or not floats(*main) else [
-            ins for a, ins in instrs if main[0] <= a <= main[1]
-            and not any(main[0] <= lo and hi <= main[1] and (lo, hi) != main
-                        and lo <= a <= hi for lo, hi in loops)]
+        def floats(lh):
+            return sum(o.split(".")[0] in GATHER_FLOAT for o in own(lh))
+
+        inner = [lh for lh in loops
+                 if floats(lh) and not any(within(o, lh) for o in loops)]
+        main = max(inner, key=floats, default=None)
+        body = [] if main is None else own(main)
+        around = [lh for lh in loops if main is not None and within(main, lh)]
+        unit = min(around, key=lambda lh: lh[1] - lh[0], default=None)
         step = None
-        for ins in body:
-            st = _STEP.match(re.sub(r"^@!?U?P\w+\s+", "", ins))
-            if st:
+        for op_ins in ([] if main is None else
+                       [ins for a, ins in instrs if main[0] <= a <= main[1]]):
+            st = _STEP.match(re.sub(r"^@!?U?P\w+\s+", "", op_ins))
+            if st and int(st.group(2), 0) < 1 << 31:   # not a down-count
                 step = int(st.group(2), 0)
-        out[(int(m.group(1)), m.group(2) == "1")] = {
-            "body": counts([_op(ins) for ins in body]), "step": step,
-            "outside": counts([_op(ins) for a, ins in instrs
-                               if not in_loop(a)])}
+        out[(int(m.group(2)), m.group(3) == "1")] = {
+            "kernel": "gather_floor_kernel" if m.group(1) else "gather_kernel",
+            "body": _gather_counts(body), "step": step,
+            "unit": None if unit is None else _gather_counts(own(unit)),
+            "outside": _gather_counts(
+                [_op(ins) for a, ins in instrs
+                 if not any(lo <= a <= hi for lo, hi in loops)])}
     return out
 
 
 _FILTER = re.compile(r"(demodulate|fir)_kernelI(.+?)EEv")
 
 
+_SAME_GATHER = re.compile(r"(gather_kernel|hermite_kernel)I(.+?)EEv")
+
+
 def same_key(name: str) -> str | None:
     """:func:`i8_key` of an int8 kernel, "<demodulate|fir> <template
-    arguments as mangled>" of a filter kernel, None for any other."""
-    m = _FILTER.search(name)
+    arguments as mangled>" of a filter kernel, "<gather_kernel|
+    hermite_kernel> <template arguments>" of K7's and the K8/K9 bundle's
+    kernels (``csrc/micro_gather.cu``), None for any other."""
+    m = _FILTER.search(name) or _SAME_GATHER.search(name)
     return i8_key(name) or (f"{m.group(1)} {m.group(2)}" if m else None)
 
 
 def same_as(source, other) -> dict:
     """{:func:`same_key`: {"same": bool, "reordered": bool,
     "instructions": [n, n_other], "registers": [r, r_other]}} for each
-    int8 or filter kernel that both ``.cu`` sources compile: "same" where
+    kernel :func:`same_key` keys that both ``.cu`` sources compile: "same" where
     the two SASS listings are equal instruction for instruction,
     "reordered" where they hold the same instructions in another order."""
     listings = []

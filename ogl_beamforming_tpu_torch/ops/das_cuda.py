@@ -266,7 +266,7 @@ def das_cuda(rf: torch.Tensor, dyn: dict, st: DasStatic):
             tables.get("tx_walk", INTERVAL_WALK), stream)
         name = launch_name(st, frames)
         build.check(name, code)
-        build.count_launch(name)
+        build.count_launch(name, f"das_{st.family}_kernel")
     if st.coherency_weighting:
         return out, inco
     return out

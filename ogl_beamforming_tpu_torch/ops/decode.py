@@ -85,7 +85,8 @@ def decode_hadamard_cuda(rf: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     code = getattr(lib, entry)(rf.data_ptr(), h8.data_ptr(), out.data_ptr(),
                                c, a, s, float(_inv_order(a)), stream)
     build.check(entry, code)
-    build.count_launch("decode_hadamard")
+    build.count_launch("decode_hadamard", "decode_i8_kernel"
+                       if entry == "decode_int16" else "decode_f32_kernel")
     if cplx:
         out = torch.view_as_complex(out.view(c, a, s // 2, 2))
     return out

@@ -194,7 +194,7 @@ def demodulate_cuda(rf: torch.Tensor, taps: torch.Tensor,
         int(rf.dtype == torch.int16), int(taps.is_complex()),
         _demod_scale(complex_filter), stream)
     build.check("demodulate", code)
-    build.count_launch("demodulate")
+    build.count_launch("demodulate", "demodulate_kernel")
     return out
 
 
@@ -220,7 +220,7 @@ def fir_cuda(x: torch.Tensor, taps: torch.Tensor,
                    taps.shape[0], decimation_rate, int(x.is_complex()),
                    int(taps.is_complex()), stream)
     build.check("fir", code)
-    build.count_launch("fir")
+    build.count_launch("fir", "fir_kernel")
     return out
 
 

@@ -11,7 +11,10 @@ window, and their names give the split by kernel.
 :class:`DeviceProfile`.  On the CPU a trace holds no kernel events and every
 device time is 0.0.  A call that ran on the card but whose trace holds no
 kernel events raises ``RuntimeError``: a missing trace is never read as a
-time of 0.
+time of 0.  A trace that holds kernel events but fewer of one of the port's
+kernels than the call launched (``kernels/build.KERNEL_LAUNCHES``) is
+returned as it is, with the kernel and the call named in
+``DeviceProfile.lost`` and in a :class:`LostKernelEvents` warning.
 """
 
 from __future__ import annotations
@@ -23,10 +26,12 @@ import json
 import os
 import tempfile
 import time
+import warnings
 from dataclasses import dataclass, field
 
 import torch
 
+from ..kernels import build
 from .device import sync
 
 # Chrome-trace categories (torch.profiler / Kineto): device activity, the
@@ -55,6 +60,17 @@ class DeviceProfile:
     # memset, in trace order
     kernel_spans: list = field(default_factory=list)
     copy_spans: list = field(default_factory=list)
+    # host time in us of each kernel launch call (``cudaLaunchKernel`` and
+    # the like) whose kernel event the trace lacks, and of every launch call
+    launch_calls: list = field(default_factory=list)
+    orphan_launches: list = field(default_factory=list)
+    # device start minus host launch call, in us, of each kernel with its
+    # launch event: no kernel starts before its launch, so a value below 0
+    # is the error of the trace's device-to-host clock conversion
+    start_lags_us: list = field(default_factory=list)
+    # one line for each of the port's kernels that the traced call launched
+    # more often than the trace holds its events (:func:`lost_kernels`)
+    lost: list = field(default_factory=list)
 
     @property
     def kernel_count(self) -> int:
@@ -123,6 +139,7 @@ def _parse_trace(logdir: str) -> DeviceProfile:
                   if e.get("ph") == "X"]
 
     launched = {}
+    launch_calls = {}
     annotations = {}
     for e in events:
         cat = str(e.get("cat", "")).lower()
@@ -130,6 +147,8 @@ def _parse_trace(logdir: str) -> DeviceProfile:
             corr = (e.get("args") or {}).get("correlation")
             if corr is not None:
                 launched[corr] = float(e["ts"])
+                if "LaunchKernel" in str(e.get("name", "")):
+                    launch_calls[corr] = float(e["ts"])
         elif cat == _ANNOTATION:
             annotations.setdefault(e["name"], float(e["ts"]))
     kernel_us = 0.0
@@ -138,6 +157,8 @@ def _parse_trace(logdir: str) -> DeviceProfile:
     kernels = []
     kernel_spans = []
     copy_spans = []
+    start_lags = []
+    seen = set()
     for e in events:
         cat = str(e.get("cat", "")).lower()
         dur = float(e.get("dur", 0.0))
@@ -145,7 +166,10 @@ def _parse_trace(logdir: str) -> DeviceProfile:
             kernel_us += dur
             op_us[e["name"]] = op_us.get(e["name"], 0.0) + dur
             corr = (e.get("args") or {}).get("correlation")
+            seen.add(corr)
             kernels.append((e["name"], launched.get(corr), dur * 1e-6))
+            if corr in launched:
+                start_lags.append(float(e["ts"]) - launched[corr])
             kernel_spans.append((float(e["ts"]), dur * 1e-6))
         elif cat in _COPIES:
             copy_us += dur
@@ -154,7 +178,12 @@ def _parse_trace(logdir: str) -> DeviceProfile:
                          op_seconds={k: v * 1e-6 for k, v in op_us.items()},
                          copy_seconds=copy_us * 1e-6, kernels=kernels,
                          annotations=annotations, kernel_spans=kernel_spans,
-                         copy_spans=copy_spans)
+                         copy_spans=copy_spans,
+                         launch_calls=sorted(launch_calls.values()),
+                         orphan_launches=sorted(
+                             ts for c, ts in launch_calls.items()
+                             if c not in seen),
+                         start_lags_us=start_lags)
 
 
 def _activities() -> list:
@@ -172,31 +201,80 @@ def _on_card(values) -> bool:
     return False
 
 
+class LostKernelEvents(RuntimeWarning):
+    """A trace lacks kernel events that its call launched (roadmap C2)."""
+
+
+def lost_kernels(profile: DeviceProfile, launched, call: str) -> list:
+    """A line for each kernel in ``launched`` ({its name as a trace shows
+    it: launches the traced call made}) of which ``profile`` holds fewer
+    kernel events than were launched, naming the kernel and ``call``."""
+    lines = []
+    for name, n in sorted(launched.items()):
+        if n <= 0:
+            continue
+        traced = sum(name in k for k, _, _ in profile.kernels)
+        if traced < n:
+            calls = profile.launch_calls
+            where = ", ".join(
+                f"#{calls.index(ts) + 1} at +{(ts - calls[0]) * 1e-3:.3f} ms"
+                for ts in profile.orphan_launches)
+            lags = profile.start_lags_us
+            lines.append(f"{name}: {n} launched by {call}, {traced} in the "
+                         f"trace of {len(profile.kernels)} kernel events; "
+                         f"launch calls without a kernel event, of "
+                         f"{len(calls)}: {where or 'none'}"
+                         + (f"; kernel start minus launch call "
+                            f"{min(lags):.0f} to {max(lags):.0f} us"
+                            if lags else ""))
+    return lines
+
+
 TRACE_ATTEMPTS = 3
 """Traces of one call :func:`device_time` takes before it gives up on kernel
 events: among many short back-to-back traces, CUPTI now and then delivers
 none for one of them."""
+
+TRACE_MARGIN_SECONDS = 0.1
+"""Host time :func:`device_time` lets pass on the card between starting the
+profiler and calling ``fn``, and between the call's end and stopping the
+profiler.  The profiler keeps a device event only where its start and end,
+converted to the host clock, fall between its own start and stop, and that
+conversion strays by milliseconds (``experiments/trace_window``): without
+the margin, the first or last kernels of a short window went missing
+(roadmap C2)."""
 
 
 def device_time(fn, *args, warmup: int = 1, logdir: str | None = None,
                 **kwargs) -> DeviceProfile:
     """Trace ONE call of ``fn(*args, **kwargs)`` and return its device
     profile.  ``warmup`` untraced calls first keep kernel builds and first
-    allocations out of the trace.  ``fn`` returns the tensor(s) it produced;
+    allocations out of the trace; on the card, the profiler runs
+    :data:`TRACE_MARGIN_SECONDS` before and after the call.  ``fn`` returns the tensor(s) it produced;
     :func:`utils.device.sync` on them ends the window, and a call whose
     arguments or result lie on the card must show kernel events: a trace
     without them is taken again, and after :data:`TRACE_ATTEMPTS` traces
-    without them it raises.  Export the trace into ``logdir`` to keep it."""
+    without them it raises.  Each of the port's kernels that the call
+    launched more often than the trace holds it is named in the profile's
+    ``lost`` and in a :class:`LostKernelEvents` warning.  Export the trace
+    into ``logdir`` to keep it."""
     for _ in range(max(warmup, 0)):
         sync(fn(*args, **kwargs))
+    call = getattr(fn, "__qualname__", None) or repr(fn)
+    margin = TRACE_MARGIN_SECONDS if torch.cuda.is_available() else 0.0
     for _ in range(TRACE_ATTEMPTS):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
+        before = build.kernel_launches()
         with torch.profiler.profile(activities=_activities()) as prof:
+            time.sleep(margin)
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             sync(out)
             window = time.perf_counter() - t0
+            time.sleep(margin)
+        launched = {k: n - before.get(k, 0)
+                    for k, n in build.kernel_launches().items()}
         with tempfile.TemporaryDirectory(prefix="bf_prof_") as tmp:
             path = logdir or tmp
             os.makedirs(path, exist_ok=True)
@@ -205,7 +283,12 @@ def device_time(fn, *args, warmup: int = 1, logdir: str | None = None,
             result = _parse_trace(path)
         result.window_seconds = window
         if result.kernels or not _on_card(list(args) + [out]):
+            result.lost = lost_kernels(result, launched, call)
+            for line in result.lost:
+                warnings.warn(line, LostKernelEvents, stacklevel=2)
             return result
     raise RuntimeError(
         f"the profiler traced work on the card but recorded no CUDA kernel "
-        f"events in {TRACE_ATTEMPTS} traces (CUPTI tracing unavailable?)")
+        f"events in {TRACE_ATTEMPTS} traces of {call} (CUPTI tracing "
+        f"unavailable?); its last call launched "
+        f"{ {k: n for k, n in launched.items() if n} }")

@@ -735,12 +735,17 @@ def _micro_close(out, ref, exact):
 
 
 def _gather_cases():
+    """K5 and K6 (the persistent floor kernel) at steps 1, 3, 133 (more
+    steps than SMs) and 512 (the TPU files' STEPS, where some warps take one
+    unit more than others); K7 (a block a step) at steps 3."""
     from ogl_beamforming_tpu_torch.experiments import (gather_micro,
                                                        gather_micro2,
                                                        gather_micro3)
-    return ([("k5", v, r) for v in gather_micro.VARIANTS for r in (64,)]
-            + [("k6", v, r) for v in gather_micro2.VARIANTS for r in (64,)]
-            + [("k7", v, r) for v in gather_micro3.VARIANTS
+    return ([("k5", v, r, s) for v in gather_micro.VARIANTS for r in (64,)
+             for s in (1, 3, 133, 512)]
+            + [("k6", v, r, s) for v in gather_micro2.VARIANTS for r in (64,)
+               for s in (1, 3, 133, 512)]
+            + [("k7", v, r, 3) for v in gather_micro3.VARIANTS
                for r in (32, 224)])
 
 
@@ -751,21 +756,62 @@ def test_micro_gather_kernel_matches_plain(dev, case, smem):
     from ogl_beamforming_tpu_torch.experiments import (gather_micro,
                                                        gather_micro2,
                                                        gather_micro3)
-    k, variant, reps = case
+    k, variant, reps, steps = case
     before = build.LAUNCHES["micro_gather"]
     if k == "k5":
         x = gather_micro.make_inputs(dev)
-        out = gather_micro.kernel(variant, x["src"], x["idx"], reps, steps=3,
-                                  smem=smem)
+        out = gather_micro.kernel(variant, x["src"], x["idx"], reps,
+                                  steps=steps, smem=smem)
         ref = gather_micro.kernel_ref(variant, x["src"], x["idx"], reps)
     else:
         mod = gather_micro2 if k == "k6" else gather_micro3
         x = mod.make_inputs(dev)
         src, src2 = x[variant] if k == "k6" else mod.sources(variant, x)
-        out = mod.kernel(variant, src, src2, x["idx"], x["w"], reps, steps=3,
-                         smem=smem)
+        out = mod.kernel(variant, src, src2, x["idx"], x["w"], reps,
+                         steps=steps, smem=smem)
         ref = mod.kernel_ref(variant, src, src2, x["idx"], x["w"], reps)
     assert build.LAUNCHES["micro_gather"] == before + 1
+    _micro_close(out, ref, variant in _MICRO_ADD_ONLY)
+
+
+def _every_step_cases():
+    from ogl_beamforming_tpu_torch.experiments import (gather_micro,
+                                                       gather_micro2)
+    return ([("k5", v, s) for v in gather_micro.VARIANTS for s in (3, 133)]
+            + [("k6", v, s) for v in gather_micro2.VARIANTS for s in (3, 133)])
+
+
+@pytest.mark.parametrize("smem", [True, False])
+@pytest.mark.parametrize("case", _every_step_cases(),
+                         ids=lambda c: "-".join(map(str, c)))
+def test_micro_gather_every_step_stores_the_plain_tile(dev, monkeypatch, case,
+                                                       smem):
+    """The K5/K6 kernel stores step 0's units alone, so the test above sees
+    one step's element mapping.  Built with every unit storing
+    (``gather_ab``'s ablation ``store_every``), every step writes its
+    elements over the tile, and each element keeps whichever write lands
+    last, mostly a later step's: a step beyond 0 that computes an element
+    wrongly or writes it to another position fails here."""
+    from ogl_beamforming_tpu_torch.experiments import (compile_source,
+                                                       gather_ab,
+                                                       gather_micro,
+                                                       gather_micro2)
+    k, variant, steps = case
+    lib = compile_source(gather_ab.sources([], True)["store_every"],
+                         "store_every", "micro_gather")
+    monkeypatch.setattr(build, "library", lambda: lib)
+    if k == "k5":
+        x = gather_micro.make_inputs(dev)
+        out = gather_micro.kernel(variant, x["src"], x["idx"], 64,
+                                  steps=steps, smem=smem)
+        ref = gather_micro.kernel_ref(variant, x["src"], x["idx"], 64)
+    else:
+        x = gather_micro2.make_inputs(dev)
+        src, src2 = x[variant]
+        out = gather_micro2.kernel(variant, src, src2, x["idx"], x["w"], 64,
+                                   steps=steps, smem=smem)
+        ref = gather_micro2.kernel_ref(variant, src, src2, x["idx"], x["w"],
+                                       64)
     _micro_close(out, ref, variant in _MICRO_ADD_ONLY)
 
 

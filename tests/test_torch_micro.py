@@ -236,43 +236,102 @@ def _listing(functions: dict) -> str:
     return "\n".join(lines)
 
 
+def _gather_counts(instructions=0, LDS=0, LDG=0, FADD=0, FMUL=0, FFMA=0,
+                   integer=0, convert=0):
+    return {"instructions": instructions, "LDS": LDS, "LDG": LDG,
+            "float": FADD + FMUL + FFMA, "FADD": FADD, "FMUL": FMUL,
+            "FFMA": FFMA, "integer": integer, "convert": convert}
+
+
 def test_sass_counts_the_gather_loops():
-    """kernels/sass.gather_loops on a synthetic listing: the repetition
-    loop (the loop with the most float arithmetic, here unrolled to 32
-    repetitions a turn) apart from the staging and remainder loops, and the
-    code in no loop; experiments.gather_work scales them to a launch."""
-    from ogl_beamforming_tpu_torch.experiments import (GATHER_THREADS, WARP,
+    """kernels/sass.gather_loops on a synthetic listing of each kernel.
+    K7's block-a-step ``gather_kernel``: the repetition loop (here unrolled
+    to 32 repetitions a turn) apart from the staging and remainder loops,
+    and the code in no loop.  K5/K6's persistent ``gather_floor_kernel``:
+    the staging wait (a loop without float arithmetic) left out, the
+    repetition loop inside the unit loop, the unit loop's own code (the
+    joining adds, the conversions, the store) apart from both.
+    experiments.gather_work scales each to a launch: K7 a warp per 32
+    threads of ``steps`` blocks, K5/K6 the outside code once a warp of the
+    grid and the unit loop once per (step, row)."""
+    from ogl_beamforming_tpu_torch.experiments import (FLOOR_UNITS,
+                                                       FLOOR_WARPS,
+                                                       GATHER_THREADS, WARP,
                                                        gather_work)
     from ogl_beamforming_tpu_torch.kernels import sass
-    body = ["LDG.E R2, desc[UR4][R6.64]",                  # 0x00
-            "STS [R3], R2",                                # 0x10
-            "ISETP.GE.AND P0, PT, R3, 0x800, PT",          # 0x20
-            "@!P0 BRA 0x0",                                # 0x30 staging
-            "LDS R8, [R9]",                                # 0x40
-            "I2F R10, R8",                                 # 0x50
-            "FADD R12, R12, R10",                          # 0x60 main loop
-            "FADD R13, R13, R10",                          # 0x70
-            "UIADD3 UR6, UR6, 0x20, URZ",                  # 0x80
-            "ISETP.GE.AND P1, PT, R4, UR6, PT",            # 0x90
-            "@!P1 BRA 0x60",                               # 0xa0
-            "FADD R12, R12, R10",                          # 0xb0 remainder
-            "@P2 BRA 0xb0",                                # 0xc0
-            "STG.E desc[UR4][R6.64], R12",                 # 0xd0
-            "EXIT"]                                        # 0xe0
-    text = _listing({"13gather_kernelILi1ELb1EEEvPKiS1_S1_PKfPfi": body,
-                     "13hermite_kernelILb1ELb1EEEvPKiS1_S1_PKfPfi": body})
+    block = ["LDG.E R2, desc[UR4][R6.64]",                  # 0x00
+             "STS [R3], R2",                                # 0x10
+             "ISETP.GE.AND P0, PT, R3, 0x800, PT",          # 0x20
+             "@!P0 BRA 0x0",                                # 0x30 staging
+             "LDS R8, [R9]",                                # 0x40
+             "I2F R10, R8",                                 # 0x50
+             "FADD R12, R12, R10",                          # 0x60 main loop
+             "FADD R13, R13, R10",                          # 0x70
+             "UIADD3 UR6, UR6, 0x20, URZ",                  # 0x80
+             "ISETP.GE.AND P1, PT, R4, UR6, PT",            # 0x90
+             "@!P1 BRA 0x60",                               # 0xa0
+             "FADD R12, R12, R10",                          # 0xb0 remainder
+             "@P2 BRA 0xb0",                                # 0xc0
+             "STG.E desc[UR4][R6.64], R12",                 # 0xd0
+             "EXIT"]                                        # 0xe0
+    floor = ["SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [UR4], RZ",  # 0x00
+             "@!P0 BRA 0x0",                                # 0x10 wait
+             "LDG.E.128 R4, desc[UR4][R2.64]",              # 0x20 unit loop
+             "LDS R8, [R9]",                                # 0x30
+             "I2F.S16 R10, R8",                             # 0x40
+             "FFMA R12, R10, R11, R12",                     # 0x50 rep loop
+             "FFMA R13, R10, R11, R13",                     # 0x60
+             "FFMA R14, R10, R11, R14",                     # 0x70
+             "IADD3 R20, R20, 0x10, RZ",                    # 0x80
+             "ISETP.GE.AND P1, PT, R20, R21, PT",           # 0x90
+             "@!P1 BRA 0x50",                               # 0xa0
+             "FADD R12, R12, R13",                          # 0xb0
+             "STG.E.128 desc[UR4][R2.64], R12",             # 0xc0
+             "IADD3 R22, R22, 0x1, RZ",                     # 0xd0
+             "@P2 BRA 0x20",                                # 0xe0
+             "EXIT"]                                        # 0xf0
+    text = _listing({"13gather_kernelILi13ELb1EEEvPKiS1_S1_PKfPfi": block,
+                     "13hermite_kernelILb1ELb1EEEvPKiS1_S1_PKfPfi": block,
+                     "19gather_floor_kernelILi10ELb1EEEvPKiS1_S1_PKfPfiii":
+                         floor})
     counts = sass.gather_loops(text)
-    assert set(counts) == {(1, True)}
-    c = counts[(1, True)]
+    assert set(counts) == {(13, True), (10, True)}
+    c = counts[(13, True)]
+    assert c["kernel"] == "gather_kernel" and c["unit"] is None
     assert c["step"] == 32
-    assert c["body"] == {"instructions": 5, "LDS": 0, "LDG": 0, "float": 2,
-                         "integer": 1, "convert": 0}
-    assert c["outside"] == {"instructions": 4, "LDS": 1, "LDG": 0,
-                            "float": 0, "integer": 0, "convert": 1}
+    assert c["body"] == _gather_counts(5, FADD=2, integer=1)
+    assert c["outside"] == _gather_counts(4, LDS=1, convert=1)
     work = gather_work(c, reps=64, steps=3)
     warps = 3 * GATHER_THREADS // WARP
     assert work["instructions"] == warps * (4 + 2 * 5)
     assert work["float"] == warps * 4 and work["LDS"] == warps
+
+    f = counts[(10, True)]
+    assert f["kernel"] == "gather_floor_kernel" and f["step"] == 16
+    assert f["body"] == _gather_counts(6, FFMA=3, integer=2)
+    assert f["unit"] == _gather_counts(7, LDS=1, LDG=1, FADD=1, integer=1,
+                                       convert=1)
+    assert f["outside"] == _gather_counts(1)
+    work = gather_work(f, reps=64, steps=3, grid=5)
+    units = 3 * FLOOR_UNITS
+    assert work["FFMA"] == units * 4 * 3
+    assert work["FADD"] == units
+    assert work["instructions"] == 5 * FLOOR_WARPS + units * (7 + 4 * 6)
+    with pytest.raises(ValueError):
+        gather_work(f, reps=64, steps=3)
+
+
+def test_sass_same_as_keys_the_gather_kernels():
+    """K7's and the K8/K9 bundle's kernels keep their instantiations' keys,
+    so ``same_as`` holds them against an older ``micro_gather.cu``; the
+    K5/K6 floor kernel is not keyed."""
+    from ogl_beamforming_tpu_torch.kernels import sass
+    assert sass.same_key("_ZN12_GLOBAL__N_113gather_kernelILi16ELb1EEEvPKiS1_"
+                         "S1_PKfPfi") == "gather_kernel Li16ELb1E"
+    assert sass.same_key("_ZN12_GLOBAL__N_114hermite_kernelILb1ELb0EEEvPKiS1"
+                         "_S1_PKfPfi") == "hermite_kernel Lb1ELb0E"
+    assert sass.same_key("_ZN12_GLOBAL__N_119gather_floor_kernelILi1ELb1EEEv"
+                         "PKiS1_S1_PKfPfiii") is None
 
 
 def test_sass_same_as_keys_the_filter_kernels():

@@ -105,6 +105,111 @@ def test_card_work_without_kernel_events_raises(monkeypatch):
         device_time(lambda x: x * 2.0, torch.ones(8))
 
 
+def test_lost_kernels_names_the_kernel_and_the_call():
+    """A kernel counted in kernels/build.KERNEL_LAUNCHES (by the name a
+    trace shows it under) of which the trace holds fewer events is named
+    with the call; kernels not launched in the call are not checked."""
+    prof = DeviceProfile(module_seconds=0.0, op_seconds={}, kernels=[
+        ("void (anonymous namespace)::das_forces_kernel<2, true>(...)", 1.0,
+         1e-3),
+        ("void at::native::vectorized_elementwise_kernel<...>", 2.0, 1e-6)])
+    lines = profiling.lost_kernels(
+        prof, {"das_forces_kernel": 1, "demodulate_kernel": 1,
+               "i8_mma_kernel": 0}, "frame")
+    assert lines == ["demodulate_kernel: 1 launched by frame, 0 in the "
+                     "trace of 2 kernel events; launch calls without a "
+                     "kernel event, of 0: none"]
+    assert profiling.lost_kernels(prof, {"das_forces_kernel": 1},
+                                  "frame") == []
+    assert profiling.lost_kernels(prof, {"das_forces_kernel": 2},
+                                  "frame") != []
+
+
+def test_parse_trace_finds_launches_without_a_kernel(tmp_path):
+    """A kernel launch call whose correlation id no kernel event carries is
+    an orphan; the lost line says which launch call of the window it was
+    and when.  Copies and other runtime calls are not launch calls."""
+    events = [
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+         "ts": 1000.0, "dur": 2.0, "args": {"correlation": 1}},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaMemcpyAsync",
+         "ts": 1500.0, "dur": 2.0, "args": {"correlation": 2}},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+         "ts": 2000.0, "dur": 2.0, "args": {"correlation": 3}},
+        {"ph": "X", "cat": "cuda_driver", "name": "cuLaunchKernel",
+         "ts": 3500.0, "dur": 2.0, "args": {"correlation": 4}},
+        {"ph": "X", "cat": "kernel", "name": "void gather_kernel<16, true>",
+         "ts": 1010.0, "dur": 900.0, "args": {"correlation": 1}},
+        {"ph": "X", "cat": "kernel", "name": "void gather_kernel<16, true>",
+         "ts": 3600.0, "dur": 900.0, "args": {"correlation": 4}},
+    ]
+    _write_trace(str(tmp_path), events)
+    prof = _parse_trace(str(tmp_path))
+    assert prof.launch_calls == [1000.0, 2000.0, 3500.0]
+    assert prof.orphan_launches == [2000.0]
+    (line,) = profiling.lost_kernels(prof, {"gather_kernel": 3}, "3 calls")
+    assert line.endswith("2 in the trace of 2 kernel events; launch calls "
+                         "without a kernel event, of 3: #2 at +1.000 ms; "
+                         "kernel start minus launch call 10 to 100 us")
+    assert prof.start_lags_us == [10.0, 100.0]
+
+
+def test_start_lags_show_the_clock_conversion(tmp_path):
+    """A kernel whose device start, on the host clock, lies before its
+    launch call shows the trace's clock conversion error as a negative
+    start lag."""
+    events = [
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+         "ts": 5000.0, "dur": 2.0, "args": {"correlation": 7}},
+        {"ph": "X", "cat": "kernel", "name": "fir_kernel",
+         "ts": 2000.0, "dur": 3.0, "args": {"correlation": 7}},
+        {"ph": "X", "cat": "kernel", "name": "no_launch_event",
+         "ts": 2100.0, "dur": 3.0, "args": {"correlation": 8}},
+    ]
+    _write_trace(str(tmp_path), events)
+    assert _parse_trace(str(tmp_path)).start_lags_us == [-3000.0]
+
+
+def test_trace_window_measures_the_card_alone():
+    from ogl_beamforming_tpu_torch.experiments import trace_window
+    with pytest.raises(RuntimeError):
+        trace_window.main(["--seconds", "0"], device="cpu")
+
+
+def test_device_time_records_a_lost_kernel(monkeypatch):
+    """A trace with kernel events but one gather launch of two missing is
+    returned as it is (no retrace), with the kernel and the call named in
+    its ``lost`` and in a LostKernelEvents warning."""
+    from ogl_beamforming_tpu_torch.kernels import build
+    monkeypatch.setattr(build, "LAUNCHES", build.collections.Counter())
+    monkeypatch.setattr(build, "KERNEL_LAUNCHES", build.collections.Counter())
+    monkeypatch.setattr(profiling, "_on_card", lambda values: True)
+    traces = []
+
+    def one_kernel(path):
+        traces.append(path)
+        return DeviceProfile(module_seconds=1e-6, op_seconds={}, kernels=[
+            ("void (anonymous namespace)::gather_floor_kernel<1, true>(...)",
+             1.0, 1e-6)])
+
+    monkeypatch.setattr(profiling, "_parse_trace", one_kernel)
+
+    def two_gathers(x):
+        build.count_launch("micro_gather", "gather_floor_kernel")
+        build.count_launch("micro_gather", "gather_floor_kernel")
+        return x * 2.0
+
+    with pytest.warns(profiling.LostKernelEvents) as caught:
+        prof = device_time(two_gathers, torch.ones(8))
+    assert len(traces) == 1
+    assert len(prof.lost) == 1
+    assert [str(w.message) for w in caught] == prof.lost
+    assert prof.lost[0].startswith("gather_floor_kernel: ")
+    assert "2 launched by " in prof.lost[0] and "two_gathers" in prof.lost[0]
+    assert ": 2 launched by" in prof.lost[0] and ", 1 in the trace" in \
+        prof.lost[0]
+
+
 def test_split_attributes_kernels_by_launch(tmp_path):
     """A kernel belongs to the segment during which it was launched: the
     launch call shares its correlation id, and annotations close
@@ -182,3 +287,20 @@ def test_profile_device_stages_cpu():
     assert list(bf.stats.table.times[row, :2]) == [0.0, 0.0]
     np.testing.assert_array_equal(bf.push_data_with_compute(raw).to_numpy(),
                                   before)
+
+
+def test_traced_ms_over_the_calls_whose_events_it_holds(monkeypatch):
+    """``experiments.traced_ms`` with a kernel filter: the filtered kernels'
+    time over the calls, or over the events the trace holds where it lost
+    some (one kernel of 20 calls missing: the mean, not 19/20 of it)."""
+    from ogl_beamforming_tpu_torch import experiments
+    k = ("void gather_kernel<16, true>(...)", 0.0, 1e-3)
+    other = ("void at::native::elementwise_kernel", 0.0, 5e-3)
+    prof = DeviceProfile(module_seconds=0.0, op_seconds={})
+    monkeypatch.setattr(profiling, "device_time", lambda fn: prof)
+    for kernels, want in (([k] * 20 + [other], 1.0), ([k] * 19, 1.0),
+                          ([k] * 40, 2.0)):
+        prof.kernels = kernels
+        got = experiments.traced_ms(lambda: None, iters=20,
+                                    kernel="gather_kernel")
+        assert abs(got - want) < 1e-12
