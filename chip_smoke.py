@@ -112,7 +112,14 @@ line:
               beside the first count; K8 and K9: the
               cubic-tap gather bundle and the one-hot product at B = 8, 32,
               128, K8 from the trace, K9 by the UNITS slope, printed as a
-              fit). K8 and K9 rows: the one-hot kernel at every B by
+              fit). K7 hermite_pair and the bundle's two forms run on
+              gather_walk_kernel: its registers, spills, resident blocks a
+              SM, grid and static 16-byte LDS, and the warp FFMA a launch
+              executes, modelled from the SASS, which must equal the
+              function's. The bundle rows (K8 and K9 gather): by events
+              and by the trace, the bound from the function (8 UNITS
+              multiply-adds an element; 10 distinct gathers in K8's form,
+              4 UNITS in K9's). K8 and K9 rows: the one-hot kernel at every B by
               events (median, IQR) and by the trace, its bound recounted
               for the function (the dense products at the bf16 peak, W's
               nonzeros on the CUDA cores), the products alone as one bf16
@@ -1489,29 +1496,37 @@ def gather_ops(steps, reps, ops_per_rep) -> float:
 # gather a clock an SM (32 banks of 4 bytes): K5 and K6 4 an element (the
 # r & 3 index repeats every four repetitions; K6 2 offsets x 2 planes), K7
 # REPS (its offset r / 2 - 1 is new at every bundle, 2 planes); the bound
-# is the larger.  The bank conflicts of a random index cost more cycles a
-# gather (K7's REPS slope: 3.1), but they are the kernel's, not the
-# card's floor.  The joining adds of the 8 chains are left out.  The first
-# count took OPS_PER_REP float32 operations per repetition and element at
-# 67 TFLOP/s (K5 "mod" 4, K6 and K7 "hermite_pair" 13), every repetition's
-# index arithmetic and gathers as work; it is printed beside.  What the
-# compiled kernels execute (kernels/sass.gather_loops,
-# experiments.gather_work) is printed beside it as a diagnosis
-# (floor_facts).
+# is the larger; the K8/K9 bundle the same way (GATHER_FUNCTION).  The
+# bank conflicts of a random index cost more cycles a gather (the first
+# K7's REPS slope: 3.1), but they are a kernel's, not the card's floor.
+# The joining adds of the chains are left out.  The first count took
+# OPS_PER_REP float32 operations per repetition and element at 67 TFLOP/s
+# (K5 "mod" 4, K6 and K7 "hermite_pair" 13; the bundle
+# HERMITE_OPS_PER_POSITION a position), every repetition's index
+# arithmetic and gathers as work; it is printed beside.  What the compiled
+# kernels execute (kernels/sass.gather_loops, experiments.gather_work) is
+# printed beside it as a diagnosis (floor_facts, walk_facts).
 FLOAT_PER_CLOCK = 128
 LDS_GATHERS_PER_CLOCK = 1     # warp-wide 4-byte gathers a clock an SM
 GATHER_FUNCTION = {          # reps -> (float ops an element, distinct gathers)
     ("K5", "mod"): lambda reps: (reps, 4),
     ("K6", "hermite_pair"): lambda reps: (2 * reps, 4),
     ("K7", "hermite_pair"): lambda reps: (2 * reps, reps),
+    # the bundle: units -> 2 positions x 4 multiply-adds a unit; K8 gathers
+    # 5 offsets of 2 planes, K9 a new offset at every position
+    ("K8", "gather"): lambda units: (8 * units, 10),
+    ("K9", "gather"): lambda units: (8 * units, 4 * units),
 }
 
 
 def gather_bound(label, kernel, mod, variant, reps, clock_mhz) -> list:
-    """The bound of ``variant`` of ``mod`` (K5, K6, K7: ``kernel``) at
-    ``reps`` repetitions and the module's STEPS, counted from the function,
-    for :func:`bound`; the first count printed beside it."""
-    from ogl_beamforming_tpu_torch.experiments import LANE, ROWS, WARP
+    """The bound of ``variant`` of ``mod`` (K5, K6, K7, or the K8/K9
+    bundle's ``gather``: ``kernel``) at ``reps`` repetitions (the bundle's
+    UNITS) and the module's STEPS, counted from the function, for
+    :func:`bound`; the first count printed beside it (the bundle's:
+    HERMITE_OPS_PER_POSITION at each of a unit's two positions)."""
+    from ogl_beamforming_tpu_torch.experiments import (
+        HERMITE_OPS_PER_POSITION, LANE, ROWS, WARP)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     per_s = clock_mhz * 1e6 * sms            # SM cycles a second
     per_elem, distinct = GATHER_FUNCTION[(kernel, variant)](reps)
@@ -1520,7 +1535,9 @@ def gather_bound(label, kernel, mod, variant, reps, clock_mhz) -> list:
              "gathers": elements * distinct / WARP / LDS_GATHERS_PER_CLOCK
              / per_s}
     by = max(times, key=times.get)
-    old = gather_ops(mod.STEPS, reps, mod.OPS_PER_REP[variant])
+    old = (gather_ops(mod.STEPS, reps, 2 * HERMITE_OPS_PER_POSITION)
+           if variant == "gather" else
+           gather_ops(mod.STEPS, reps, mod.OPS_PER_REP[variant]))
     print(f"[micro] {label} bound from the function at {clock_mhz:g} MHz x "
           f"{sms} SMs: {elements} elements x {per_elem} float adds or "
           f"multiply-adds and {distinct} distinct gathers -> "
@@ -1569,6 +1586,55 @@ def floor_facts(label, mod, variant, counts, smi_line) -> None:
           f"{dict((k, c['outside'][k]) for k in short)}; modelled from "
           f"them, a launch executes {work[op]} warp {op} (the function's "
           f"{want}), "
+          f"{work['convert']} conversions, {work['instructions']} warp "
+          "instructions")
+
+
+def walk_facts(label, vid, count, steps, counts, smi_line) -> None:
+    """What the compiled gather_walk_kernel instantiation ``vid`` (shared
+    memory) is and executes at ``count`` (REPS, or the bundle's UNITS) and
+    ``steps``: its registers, spills, resident blocks a SM and grid, the
+    16-byte LDS of its turn loop, unit loop and tail, and per launch the
+    warp instructions by kind, modelled from the SASS
+    (``experiments.gather_work``; not an execution count); fails unless the
+    model gives a launch exactly the function's warp FFMA, 8 a unit of the
+    bundle (2 a repetition of K7 ``hermite_pair``) an element, and the
+    walk's fix-up, 3 bundles of the quad where the kept range ends, a unit
+    (none in K8's form): the masked bundles' products are computed too."""
+    from ogl_beamforming_tpu_torch.experiments import (HERMITE_IDS, LANE,
+                                                       ROWS, WALK_WARPS,
+                                                       WARP, gather_grid,
+                                                       gather_work,
+                                                       walk_trips)
+    tag = f"gather_walk_kernelILi{vid}ELb1E"
+    regs = [v for k, v in BUILD_FACTS["usage"].items() if tag in k]
+    c = counts.get((vid, True))
+    check(len(regs) == 1 and c is not None and c["unit"] is not None,
+          f"{label}: no single ptxas entry or no unit loop for {tag}")
+    per_sm, grid = gather_grid(vid, True, steps)
+    check(per_sm >= 1, f"{label}: {per_sm} blocks a SM")
+    work = gather_work(c, count, steps, grid, vid)
+    per_elem = 8 * count if vid in HERMITE_IDS.values() else 2 * count
+    want = steps * ROWS * LANE * per_elem // WARP
+    fixup = 0 if vid == HERMITE_IDS[True] else steps * 64 * 3 * 4
+    check(work["FFMA"] == want + fixup, f"{label}: a launch executes "
+          f"{work['FFMA']} warp FFMA (modelled from the SASS), the function "
+          f"{want} and the fix-up {fixup}")
+    short = ("instructions", "LDS", "LDS128", "FADD", "FFMA", "integer",
+             "convert")
+    tail = c["tail"] or {}
+    print(f"[micro] {label} gather_walk_kernel<{vid}, shared> ({smi_line}): "
+          f"{regs[0][0]} registers, {regs[0][1]} B spilled, {per_sm} blocks "
+          f"of {WALK_WARPS} warps resident a SM, grid {grid} for "
+          f"{steps * 64} units; walk turns and tail trips "
+          f"{walk_trips(vid, count)}; static SASS (kernels/sass.gather_loops)"
+          f" turn loop {dict((k, c['body'][k]) for k in short)}, tail "
+          f"{dict((k, tail.get(k, 0)) for k in short)}, unit loop "
+          f"{dict((k, c['unit'][k]) for k in short)}, outside "
+          f"{dict((k, c['outside'][k]) for k in short)}; modelled from "
+          f"them, a launch executes {work['FFMA']} warp FFMA (the "
+          f"function's {want} and the fix-up's {fixup}), {work['LDS128']} "
+          f"16-byte LDS, "
           f"{work['convert']} conversions, {work['instructions']} warp "
           "instructions")
 
@@ -1733,8 +1799,11 @@ def phase_micro_gather(dev, smi_line, counts,
         gather_bound(f"K7 hermite_pair, shared, REPS {reps}", "K7",
                      gather_micro3, "hermite_pair", reps, clock_mhz),
         iqr=iqr)
+    walk_facts(f"K7 hermite_pair, REPS {reps}",
+               gather_micro3.VARIANT_IDS["hermite_pair"], reps,
+               gather_micro3.STEPS, counts, smi_line)
     gather_trace(f"K7 hermite_pair, shared, REPS {reps}", row, k7, smi_line,
-                 "gather_kernel")
+                 "gather_walk_kernel")
     out.append((row, n))
     return out
 
@@ -1769,30 +1838,40 @@ def onehot_facts(batch: int) -> str:
             + f"; {want:g} tensor-core instructions wanted)")
 
 
-def phase_micro_onehot(dev, smi_line) -> list[tuple[dict, int]]:
+def phase_micro_onehot(dev, smi_line, counts,
+                       clock_mhz) -> list[tuple[dict, int]]:
     """K8, K9: the gather bundle and the one-hot product against their
-    plain versions (one-hot at every B), the sweeps, K9's slope fit, and a
-    one-hot row each: B = 128 by events (with the IQR) and by the trace,
-    every B beside it, the recounted bound, the product alone as one bf16
-    ``torch.matmul``, and the kernel's registers and unit-loop SASS."""
+    plain versions (one-hot at every B), the sweeps, K9's slope fit; a
+    bundle row each (shared memory, by events and by the trace, its bound
+    from the function at ``clock_mhz``, what the compiled walk kernel
+    executes from ``counts``); and a one-hot row each: B = 128 by events
+    (with the IQR) and by the trace, every B beside it, the recounted
+    bound, the product alone as one bf16 ``torch.matmul``, and the
+    kernel's registers and unit-loop SASS."""
     from ogl_beamforming_tpu_torch.experiments import (
-        ONEHOT_BATCHES, launch_onehot, onehot_band_writes,
+        HERMITE_IDS, ONEHOT_BATCHES, check_gather_args,
+        launch_gather_hermite, launch_onehot, onehot_band_writes,
         onehot_library_operands, onehot_micro, onehot_micro2,
         onehot_product_ops, traced_ms)
+    from ogl_beamforming_tpu_torch.kernels import build
     print(f"[micro] onehot_kernel build ({smi_line}): "
           + "; ".join(onehot_facts(b) for b in ONEHOT_BATCHES))
     out = []
-    for mod, label, units, replaces in (
+    for mod, label, units, replaces, g_replaces in (
             (onehot_micro, "K8", onehot_micro.UNITS,
-             "experiments/onehot_micro.py:86"),
+             "experiments/onehot_micro.py:86",
+             "experiments/onehot_micro.py:108"),
             (onehot_micro2, "K9", onehot_micro2.UNITS_SWEEP[-1],
-             "experiments/onehot_micro2.py:98")):
+             "experiments/onehot_micro2.py:98",
+             "experiments/onehot_micro2.py:70")):
         x = onehot_micro.make_inputs(dev)
         g = (x["src"], x["src2"], x["idx"], x["w"])
         ref = mod.gather_kernel_ref(*g, units=units)
+        g_err = 0.0
         for smem in (True, False):
-            micro_compare(mod.gather_kernel(*g, units=units, smem=smem), ref,
-                          False, f"{label} gather_hermite smem={smem}")
+            g_err = max(g_err, micro_compare(
+                mod.gather_kernel(*g, units=units, smem=smem), ref, False,
+                f"{label} gather_hermite smem={smem}"))
         err = 0.0
         for b in ONEHOT_BATCHES:
             o = (x[f"rf{b}"], x["kvox"], x["wt4"])
@@ -1815,6 +1894,7 @@ def phase_micro_onehot(dev, smi_line) -> list[tuple[dict, int]]:
                     res[f"onehot_mxu_B{b}"] = onehot_micro2.sweep_onehot(
                         x, b, iters=MICRO_ITERS)
             n = launches_of("micro_onehot", run)
+        n_gather = build.LAUNCHES["micro_gather"]   # the bundle in that sweep
         for k, r in res.items():
             ns = {kk: v for kk, v in r.items() if kk.startswith("ns_")}
             us = np.round(np.atleast_1d(r["us"]), 1).tolist()
@@ -1864,6 +1944,22 @@ def phase_micro_onehot(dev, smi_line) -> list[tuple[dict, int]]:
               f"{smi_line}): {lib:.4f} ms by events, {lib_trace:.4f} by the "
               "trace")
         del a, w
+        check_gather_args(*g, True)
+        g_fn = lambda: launch_gather_hermite(  # noqa: E731
+            mod.K8_FORM, *g, units, mod.STEPS, True)
+        g_ms, g_iqr = kernel_ms(g_fn)
+        g_plain = median_ms(lambda: mod.gather_kernel_ref(
+            *g, units=units, steps=mod.STEPS), RUNS)
+        g_label = f"{label} gather bundle, shared, UNITS {units}"
+        g_row = kernel_row(
+            f"micro_gather_{label.lower()}", "micro_gather.cu", g_replaces,
+            g_err, g_ms, g_plain, TILE_BYTES, gather_bound(
+                g_label, label, mod, "gather", units, clock_mhz), iqr=g_iqr)
+        walk_facts(f"{label} gather bundle, UNITS {units}",
+                   HERMITE_IDS[mod.K8_FORM], units, mod.STEPS, counts,
+                   smi_line)
+        gather_trace(g_label, g_row, g_fn, smi_line, "gather_walk_kernel")
+        out.append((g_row, n_gather))
         row = kernel_row(
             f"micro_onehot_{label.lower()}", "micro_onehot.cu", replaces,
             err, per_b["128"]["ms"], plain, (128 * 128 * 2 + 16 * 128) * 4,
@@ -2011,7 +2107,8 @@ def phase_micro_i8(dev, smi_line) -> list[tuple[dict, int]]:
 
 def phase_micro(dev, smi_line) -> list[dict]:
     """Phase 6; returns the rows with their sweeps' launch counts."""
-    from ogl_beamforming_tpu_torch.experiments import (gather_micro,
+    from ogl_beamforming_tpu_torch.experiments import (HERMITE_IDS,
+                                                       gather_micro,
                                                        gather_micro2,
                                                        gather_micro3,
                                                        max_sm_clock_mhz,
@@ -2019,21 +2116,23 @@ def phase_micro(dev, smi_line) -> list[dict]:
                                                        sm_clock_mhz)
     from ogl_beamforming_tpu_torch.kernels import build, sass
     t0 = time.perf_counter()
-    names = {}
+    names = {i: f"{'K8' if k8 else 'K9'} gather"
+             for k8, i in HERMITE_IDS.items()}
     for label, mod in (("K5", gather_micro), ("K6", gather_micro2),
                        ("K7", gather_micro3)):
         names.update({i: f"{label} {v}" for v, i in mod.VARIANT_IDS.items()})
     loads = sass_loads(build.library_path())
     print("[micro] static loads in the compiled gather kernels (cuobjdump "
-          "-sass; LDS/LDG in the whole function): "
+          "-sass; LDS (of them 16-byte) / LDG in the whole function): "
           + "; ".join(f"{names.get(k, k)} {'shared' if sm else 'global'} "
-                      f"{n_lds}/{n_ldg}"
-                      for (k, sm), (n_lds, n_ldg) in sorted(
-                          loads.items(), key=lambda kv: str(kv[0]))))
+                      f"{n_lds} ({n_wide})/{n_ldg}"
+                      for (k, sm), (n_lds, n_wide, n_ldg) in sorted(
+                          loads.items())))
     clock = sm_clock_mhz()
     counts = sass.gather_loops(sass.dump(build.library_path()))
-    rows = (phase_micro_gather(dev, smi_line, counts, max_sm_clock_mhz())
-            + phase_micro_onehot(dev, smi_line)
+    peak_clock = max_sm_clock_mhz()
+    rows = (phase_micro_gather(dev, smi_line, counts, peak_clock)
+            + phase_micro_onehot(dev, smi_line, counts, peak_clock)
             + phase_micro_i8(dev, smi_line))
     for row, n in rows:
         row["launches"] = n

@@ -14,9 +14,8 @@ repetition count, in which constant terms (launch, prologue, store) cancel.
 A launch shorter than its enqueue is timed from the profiler's kernel
 durations instead (:func:`traced_ms`).
 A TPU grid ran its steps in order on one core; here the steps run side by
-side on every SM (a block each, or K5's and K6's units spread over a
-persistent grid), so a time converts to cycles per unit of work as ``time *
-SM clock * SMs / work``.
+side on every SM (their units spread over a persistent grid), so a time
+converts to cycles per unit of work as ``time * SM clock * SMs / work``.
 """
 
 from __future__ import annotations
@@ -76,7 +75,8 @@ def traced_ms(fn, iters: int = 20, kernel: str | None = None) -> float:
         return prof.module_seconds * 1e3 / iters
     times = [t for name, _, t in prof.kernels if kernel in name]
     if not times:
-        raise RuntimeError(f"no {kernel} kernel events in the trace"
+        raise RuntimeError(f"no {kernel} kernel events in the trace (its "
+                           f"kernels: {sorted({n for n, _, _ in prof.kernels})})"
                            + "".join(f"; {line}" for line in prof.lost))
     return sum(times) * 1e3 / min(len(times), iters)
 
@@ -181,10 +181,11 @@ def max_sm_clock_mhz() -> float:
 
 
 def compile_source(text: str, tag: str, entry: str):
-    """``text`` (a ``csrc`` source whose C entry point ``entry`` has the
-    library's signature) compiled alone with the library's nvcc flags into
-    a library of its own under ``_build/``, named by ``tag`` and its hash,
-    and loaded: the A/B harnesses' other sources and ablations."""
+    """``text`` (a ``csrc`` source whose C entry point ``entry``, and each
+    named ``entry_*``, has the library's signature) compiled alone with the
+    library's nvcc flags into a library of its own under ``_build/``, named
+    by ``tag`` and its hash, and loaded: the A/B harnesses' other sources
+    and ablations."""
     import ctypes
     import hashlib
 
@@ -202,9 +203,11 @@ def compile_source(text: str, tag: str, entry: str):
             raise build.KernelBuildError(f"nvcc {tag}:\n{proc.stdout}"
                                          f"{proc.stderr}")
     lib = ctypes.CDLL(str(out))
-    fn = getattr(lib, entry)
-    fn.argtypes = build.SIGNATURES[entry]
-    fn.restype = ctypes.c_int
+    for name, argtypes in build.SIGNATURES.items():
+        if name == entry or name.startswith(f"{entry}_"):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -231,43 +234,72 @@ def ab_sources(cu_name: str, others: list[str], ablations: dict) -> dict:
     return out
 
 
-GATHER_THREADS = 1024   # threads a block of gather_kernel (K7)
-GATHER_CHAINS = 8       # repetitions in one turn of its loop body
 FLOOR_VARIANTS = 12     # ids of gather_floor_kernel (K5, K6): 0 .. 11
 FLOOR_WARPS = 8         # warps a block of gather_floor_kernel
 FLOOR_UNITS = 16        # its units a step: a unit is a warp's 128 elements
+GATHER_CHAINS = 8       # repetitions in one turn of a repetition loop
+WALK_WARPS = 12         # warps a block of gather_walk_kernel (K7, the bundle)
+WALK_UNITS = 64         # its units a step: a unit is 32 elements, one a lane
+WALK_TURN_QUADS = 4     # 16-byte quads of a plane a turn of its walk reads
+HERMITE_IDS = {True: 18, False: 17}   # the bundle's ids: K8 form, K9 form
+
+
+def walk_trips(variant_id: int, count: int) -> tuple[int, int]:
+    """(turns, tail trips) of one walk of ``gather_walk_kernel``'s variant
+    ``variant_id`` at ``count`` (REPS for K7, UNITS for the bundle), as
+    ``walk_launch`` splits it: K8's bundle turns of 4 units and a tail of 2;
+    the walks (K7 ``f32_direct``, ``idx_fresh``, ``unpack`` a word a
+    repetition, ``hermite_pair`` a word a bundle, the K9 bundle two words a
+    unit), after their first chain period (2 quads of 8 chains, 1 of 4),
+    turns of WALK_TURN_QUADS quads and a tail of periods; K7 ``fma`` walks
+    nothing (0, 0)."""
+    if variant_id == HERMITE_IDS[True]:
+        return count // 4, count % 4 // 2
+    if variant_id == 12:
+        return 0, 0
+    words = {16: count // 2, HERMITE_IDS[False]: 2 * count}.get(variant_id,
+                                                                count)
+    period = 1 if variant_id in (16, HERMITE_IDS[False]) else 2
+    quads = words // 4 - period
+    return quads // WALK_TURN_QUADS, quads % WALK_TURN_QUADS // period
 
 
 def gather_work(counts: dict, reps: int, steps: int,
-                grid: int | None = None) -> dict:
+                grid: int | None = None, variant_id: int | None = None) -> dict:
     """The warp-wide instructions that one launch of a gather kernel
     executes, by kind, from the static counts of its instantiation
-    (``kernels.sass.gather_loops``), each repetition loop turning ``reps /
-    step`` times (step GATHER_CHAINS where the counts hold none).
-    ``gather_kernel`` (K7; counts without a unit loop): ``steps`` blocks of
-    GATHER_THREADS threads, each turning the repetition loop once and
-    running the code outside every loop once.  ``gather_floor_kernel`` (K5,
-    K6): ``grid`` blocks of FLOOR_WARPS warps, each running the code
-    outside every loop once, and ``steps * FLOOR_UNITS`` units (a row of
-    a step, one warp's), each running the unit loop's own code and the
-    repetition loop once."""
-    turns = reps // (counts["step"] or GATHER_CHAINS)
-    if counts.get("unit") is None:
-        warps = steps * GATHER_THREADS // WARP
-        return {k: warps * (counts["outside"][k] + turns * v)
-                for k, v in counts["body"].items()}
+    (``kernels.sass.gather_loops``): ``grid`` blocks, each warp running the
+    code outside every loop once, and each unit running the unit loop's own
+    code once.  ``gather_floor_kernel`` (K5, K6): FLOOR_WARPS warps a block,
+    ``steps * FLOOR_UNITS`` units (a row of a step, one warp's), each
+    turning the repetition loop ``reps / step`` times (step GATHER_CHAINS
+    where the counts hold none).  ``gather_walk_kernel`` (K7, the bundle;
+    ``variant_id`` names it): WALK_WARPS warps a block, ``steps *
+    WALK_UNITS`` units (32 elements of a step), each turning the walk's
+    loop and its tail loop as :func:`walk_trips` gives for ``reps`` (REPS,
+    or the bundle's UNITS); K7 ``fma``'s repetition loop ``reps / step``
+    times."""
     if grid is None:
-        raise ValueError("gather_floor_kernel's work needs its grid")
-    warps, units = grid * FLOOR_WARPS, steps * FLOOR_UNITS
+        raise ValueError("a gather kernel's work needs its grid")
+    if counts["kernel"] == "gather_floor_kernel":
+        warps, units = grid * FLOOR_WARPS, steps * FLOOR_UNITS
+        turns, tails = reps // (counts["step"] or GATHER_CHAINS), 0
+    else:
+        warps, units = grid * WALK_WARPS, steps * WALK_UNITS
+        turns, tails = walk_trips(variant_id, reps)
+        if variant_id == 12:
+            turns = reps // (counts["step"] or GATHER_CHAINS)
+    tail = counts.get("tail") or {}
     return {k: warps * counts["outside"][k]
-            + units * (counts["unit"][k] + turns * v)
+            + units * (counts["unit"][k] + turns * v + tails * tail.get(k, 0))
             for k, v in counts["body"].items()}
 
 
 def gather_grid(variant_id: int, smem: bool, steps: int) -> tuple[int, int]:
-    """(blocks a SM holds, grid) of the launch ``micro_gather`` makes for
-    K5/K6 ``variant_id`` (below FLOOR_VARIANTS) at ``steps`` on the current
-    card, without launching (``micro_gather_grid``)."""
+    """(blocks a SM holds, grid) of the launch ``micro_gather`` (K5-K7) or
+    ``micro_gather_hermite`` (the bundle, :data:`HERMITE_IDS`) makes for
+    ``variant_id`` at ``steps`` on the current card, without launching
+    (``micro_gather_grid``)."""
     import ctypes
 
     from ..kernels import build
@@ -353,10 +385,10 @@ def launch_gather(variant_id: int, src, src2, idx, w, reps: int, steps: int,
                   smem: bool) -> torch.Tensor:
     """One launch of ``micro_gather``: ``steps`` times the (ROWS, LANE)
     tile of variant ``variant_id`` over ``reps`` repetitions, gathering from
-    shared memory (``smem``) or through ``__ldg`` from device memory; K5
-    and K6 (ids below FLOOR_VARIANTS) on a persistent grid
-    (:func:`gather_grid`), K7 a block a step.  Arguments checked by
-    :func:`check_gather_args`."""
+    shared memory (``smem``) or through ``__ldg`` from device memory, on a
+    persistent grid (:func:`gather_grid`): K5 and K6 (ids below
+    FLOOR_VARIANTS) on ``gather_floor_kernel``, K7 on ``gather_walk_kernel``.
+    Arguments checked by :func:`check_gather_args`."""
     from ..kernels import build
     if reps <= 0 or reps % 8 or steps <= 0:
         raise ValueError(f"reps must be a positive multiple of 8 and steps "
@@ -368,15 +400,16 @@ def launch_gather(variant_id: int, src, src2, idx, w, reps: int, steps: int,
         torch.cuda.current_stream(src.device).cuda_stream)
     build.check("micro_gather", code)
     build.count_launch("micro_gather", "gather_floor_kernel"
-                       if variant_id < FLOOR_VARIANTS else "gather_kernel")
+                       if variant_id < FLOOR_VARIANTS else "gather_walk_kernel")
     return out
 
 
 def launch_gather_hermite(k8: bool, src, src2, idx, w, units: int,
                           steps: int, smem: bool) -> torch.Tensor:
-    """One launch of ``micro_gather_hermite``: the DAS kernel's cubic tap
-    bundle over ``units`` units per block (K8's form with ``k8``, else
-    K9's); arguments checked by :func:`check_gather_args`."""
+    """One launch of ``micro_gather_hermite``: ``steps`` times the DAS
+    kernel's cubic tap bundle over ``units`` units (K8's form with ``k8``,
+    else K9's) on ``gather_walk_kernel``'s persistent grid; arguments
+    checked by :func:`check_gather_args`."""
     from ..kernels import build
     if units <= 0 or units % 2 or steps <= 0:
         raise ValueError(f"units must be a positive even count and steps "
@@ -387,7 +420,7 @@ def launch_gather_hermite(k8: bool, src, src2, idx, w, units: int,
         w.data_ptr(), out.data_ptr(), units, steps,
         torch.cuda.current_stream(src.device).cuda_stream)
     build.check("micro_gather_hermite", code)
-    build.count_launch("micro_gather", "hermite_kernel")
+    build.count_launch("micro_gather", "gather_walk_kernel")
     return out
 
 
@@ -552,12 +585,12 @@ HERMITE_OPS_PER_POSITION = 26
 
 
 def sass_loads(library_path) -> dict:
-    """Static counts of shared-memory loads (``LDS``) and device-memory
-    loads (``LDG``) in each gather kernel of the built library, from
-    ``cuobjdump -sass``: ``{(variant id, shared memory): (LDS, LDG)}`` for
-    ``gather_floor_kernel`` (K5, K6) and ``gather_kernel`` (K7) and
-    ``{("hermite K8" | "hermite K9", shared memory): ...}`` for
-    ``hermite_kernel``.  Counted over the whole function: where the
+    """Static counts of shared-memory loads (``LDS``, and of them the
+    16-byte ``LDS.128``) and device-memory loads (``LDG``) in each gather
+    kernel of the built library, from ``cuobjdump -sass``: ``{(variant id,
+    shared memory): (LDS, LDS.128, LDG)}`` for ``gather_floor_kernel`` (K5,
+    K6) and ``gather_walk_kernel`` (K7, and the bundle at
+    :data:`HERMITE_IDS`).  Counted over the whole function: where the
     compiler loads a gather once outside the repetition loop, it counts
     once."""
     tool = shutil.which("cuobjdump") or str(
@@ -571,22 +604,17 @@ def sass_loads(library_path) -> dict:
     for line in text.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            m = re.search(r"gather_(?:floor_)?kernelILi(\d+)ELb([01])E",
+            m = re.search(r"gather_(?:floor|walk)_kernelILi(\d+)ELb([01])E",
                           name)
-            h = re.search(r"hermite_kernelILb([01])ELb([01])E", name)
-            if m:
-                key = (int(m.group(1)), m.group(2) == "1")
-            elif h:
-                key = ("hermite K8" if h.group(1) == "1" else "hermite K9",
-                       h.group(2) == "1")
-            else:
-                key = None
+            key = (int(m.group(1)), m.group(2) == "1") if m else None
             if key is not None:
-                counts[key] = [0, 0]
+                counts[key] = [0, 0, 0]
         elif key is not None:
             op = line.split("*/", 1)[-1].strip()
             if re.match(r"(@!?U?P\w+\s+)?LDS(\.|\s)", op):
                 counts[key][0] += 1
+                counts[key][1] += bool(re.match(r"(@!?U?P\w+\s+)?LDS\.128",
+                                                op))
             elif re.match(r"(@!?U?P\w+\s+)?LDG(\.|\s)", op):
-                counts[key][1] += 1
+                counts[key][2] += 1
     return {k: tuple(v) for k, v in counts.items()}

@@ -2,10 +2,11 @@
 
 The counterpart of ``experiments/gather_micro3.py``: each variant's bundle,
 repeated ``reps`` times per element of a (16, 128) tile into 8 accumulator
-chains, in ``STEPS`` blocks, timed at REPS in {32, 96, 224}; the slope of
-time over REPS gives the cost of one repetition with every constant term
-(launch, staging, store) cancelled.  One repetition of a step is one gather
-per element, 2048 / 32 = 64 warp-wide gathers, so
+chains, for ``STEPS`` steps (``gather_walk_kernel``'s persistent grid),
+timed at REPS in {32, 96, 224}; the slope of time over REPS gives the cost
+of one repetition with every constant term (launch, staging, lane dealing,
+store) cancelled.  One repetition of a step is one gather per element,
+2048 / 32 = 64 warp-wide gathers, so
 
     cycles per warp gather = slope * SM clock * SMs / (STEPS * 64).
 
@@ -109,7 +110,7 @@ def kernel_ref(variant, src, src2, idx, w, reps, steps=1) -> torch.Tensor:
 
 def kernel(variant, src, src2, idx, w, reps, steps=STEPS, smem=True):
     """The tile of ``variant``: the CUDA kernel for CUDA tensors (``steps``
-    blocks, gathering from shared memory or, without ``smem``, through
+    steps, gathering from shared memory or, without ``smem``, through
     ``__ldg``), the plain version for CPU tensors."""
     if src.is_cuda:
         check_gather_args(src, src2, idx, w, variant in INT_SRC)

@@ -31,8 +31,8 @@ kernels (``decode_i8_kernel``, ``i8_mma_kernel``) whole: its instructions,
 MMAs, ``ldmatrix``, ``cp.async`` and the rest of :data:`I8_OPS`.
 ``--source F.cu --same-as G.cu`` also says, for each int8 kernel and each
 instantiation of the filter kernels (``demodulate_kernel``, ``fir_kernel``)
-and of K7's and the K8/K9 bundle's gather kernels (``gather_kernel``,
-``hermite_kernel``) that both compile, whether its SASS is the same
+and of K7's and the K8/K9 bundle's gather kernel (``gather_walk_kernel``)
+that both compile, whether its SASS is the same
 instruction for instruction (the decode kernel of an older ``decode.cu``
 against the current one, say):
 
@@ -41,7 +41,7 @@ against the current one, say):
 
 :func:`gather_loops` counts the repetition loop, the unit loop around it
 and the code outside every loop of each instantiation of
-``gather_floor_kernel`` (K5, K6) and ``gather_kernel`` (K7)
+``gather_floor_kernel`` (K5, K6) and ``gather_walk_kernel`` (K7, the bundle)
 (``csrc/micro_gather.cu``) by kind of instruction, for the
 microbenchmarks' diagnosis.
 """
@@ -306,7 +306,7 @@ GATHER_CONVERT = ("I2F", "F2I", "I2FP", "F2IP")
 """The kinds of instruction that :func:`gather_loops` counts: float adds
 and products (also each of the three alone), integer and move
 instructions, and conversions."""
-_GATHER = re.compile(r"gather_(floor_)?kernelILi(\d+)ELb([01])E")
+_GATHER = re.compile(r"gather_(floor|walk)_kernelILi(\d+)ELb([01])E")
 
 
 _STEP = re.compile(r"^(?:U?IADD3|VIADD)\s+(U?R\d+),\s*\1,\s*(0x[0-9a-f]+|\d+)"
@@ -317,6 +317,7 @@ def _gather_counts(ops) -> dict:
     kinds = [o.split(".")[0] for o in ops]
     return {"instructions": len(ops),
             "LDS": kinds.count("LDS"), "LDG": kinds.count("LDG"),
+            "LDS128": sum(o.startswith("LDS.128") for o in ops),
             "float": sum(k in GATHER_FLOAT for k in kinds),
             **{k: kinds.count(k) for k in GATHER_FLOAT},
             "integer": sum(k in GATHER_INTEGER for k in kinds),
@@ -325,21 +326,24 @@ def _gather_counts(ops) -> dict:
 
 def gather_loops(text: str) -> dict:
     """{(variant id, shared memory): counts} of every instantiation of
-    ``gather_floor_kernel`` (K5, K6) and ``gather_kernel`` (K7)
-    (``csrc/micro_gather.cu``) in ``text``.  ``body``: the repetition loop
-    (of the innermost loops with float arithmetic, the one with the most),
-    its instructions and of them ``LDS``, ``LDG``, ``float``
+    ``gather_floor_kernel`` (K5, K6) and ``gather_walk_kernel`` (K7, the
+    K8/K9 bundle) (``csrc/micro_gather.cu``) in ``text``.  ``body``: the
+    repetition loop, or a walk's turn loop (of the innermost loops with
+    float arithmetic, the one with the most), its instructions and of them
+    ``LDS`` (and of those the 16-byte ``LDS128``), ``LDG``, ``float``
     (:data:`GATHER_FLOAT`; also ``FADD``, ``FMUL`` and ``FFMA`` alone),
     ``integer`` (:data:`GATHER_INTEGER`) and ``convert``
     (:data:`GATHER_CONVERT`); ``step``: the repetitions a turn of it takes
     (the immediate its counter adds: 8 a turn of the source's loop, more
     where the compiler unrolled it; None where no counter adds an
     immediate); ``unit``: the same counts of the innermost loop around it
-    (``gather_floor_kernel``'s loop over a warp's units), without the loops
-    nested in it, each executed once a unit; None where no loop holds the
-    repetition loop; ``outside``: the same counts of the instructions in no
-    loop, each executed once a warp (so the staging loop or wait, and a
-    remainder loop no launch here enters, are left out: a lower bound)."""
+    (the loop over a warp's units), without the loops nested in it, each
+    executed once a unit; None where no loop holds the repetition loop;
+    ``tail``: the same counts of the other loops with float arithmetic in
+    the unit loop (a walk's tail loop), None where there is none;
+    ``outside``: the same counts of the instructions in no loop, each
+    executed once a warp (so the staging loop or wait and the lane dealing
+    are left out: a lower bound)."""
     out = {}
     for name, (instrs, labels) in functions(text).items():
         m = _GATHER.search(name)
@@ -373,6 +377,9 @@ def gather_loops(text: str) -> dict:
         body = [] if main is None else own(main)
         around = [lh for lh in loops if main is not None and within(main, lh)]
         unit = min(around, key=lambda lh: lh[1] - lh[0], default=None)
+        tails = [] if unit is None else [
+            lh for lh in loops if lh != main and within(lh, unit)
+            and floats(lh) and not within(main, lh)]
         step = None
         for op_ins in ([] if main is None else
                        [ins for a, ins in instrs if main[0] <= a <= main[1]]):
@@ -380,9 +387,11 @@ def gather_loops(text: str) -> dict:
             if st and int(st.group(2), 0) < 1 << 31:   # not a down-count
                 step = int(st.group(2), 0)
         out[(int(m.group(2)), m.group(3) == "1")] = {
-            "kernel": "gather_floor_kernel" if m.group(1) else "gather_kernel",
+            "kernel": f"gather_{m.group(1)}_kernel",
             "body": _gather_counts(body), "step": step,
             "unit": None if unit is None else _gather_counts(own(unit)),
+            "tail": _gather_counts([o for lh in tails for o in own(lh)])
+            if tails else None,
             "outside": _gather_counts(
                 [_op(ins) for a, ins in instrs
                  if not any(lo <= a <= hi for lo, hi in loops)])}
@@ -392,14 +401,14 @@ def gather_loops(text: str) -> dict:
 _FILTER = re.compile(r"(demodulate|fir)_kernelI(.+?)EEv")
 
 
-_SAME_GATHER = re.compile(r"(gather_kernel|hermite_kernel)I(.+?)EEv")
+_SAME_GATHER = re.compile(r"(gather_walk_kernel)I(.+?)EEv")
 
 
 def same_key(name: str) -> str | None:
     """:func:`i8_key` of an int8 kernel, "<demodulate|fir> <template
-    arguments as mangled>" of a filter kernel, "<gather_kernel|
-    hermite_kernel> <template arguments>" of K7's and the K8/K9 bundle's
-    kernels (``csrc/micro_gather.cu``), None for any other."""
+    arguments as mangled>" of a filter kernel, "gather_walk_kernel
+    <template arguments>" of K7's and the K8/K9 bundle's kernel
+    (``csrc/micro_gather.cu``), None for any other."""
     m = _FILTER.search(name) or _SAME_GATHER.search(name)
     return i8_key(name) or (f"{m.group(1)} {m.group(2)}" if m else None)
 

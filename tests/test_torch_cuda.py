@@ -815,6 +815,91 @@ def test_micro_gather_every_step_stores_the_plain_tile(dev, monkeypatch, case,
     _micro_close(out, ref, variant in _MICRO_ADD_ONLY)
 
 
+def _walk_tile(name):
+    """An idx tile for the walk kernel (K7 and the bundle): the module's
+    own (None), random over the whole range the kernel takes, all equal,
+    and the extremes 0 and LANE - 4."""
+    if name == "seed 11":
+        return np.random.default_rng(11).integers(0, 125, (16, 128),
+                                                  dtype=np.int32)
+    return None if name == "own" else np.full((16, 128), int(name), np.int32)
+
+
+_WALK_TILES = ("own", "seed 11", "60", "0", "124")
+
+
+def _walk_case(dev, form, variant, count, steps, smem, tile, lib=None):
+    """(kernel tile, plain tile) of K7 ``variant`` (form "k7") or the
+    bundle (form "k8", "k9") at ``count`` (REPS or UNITS) and ``steps``,
+    on idx tile ``tile``, through ``lib`` where given."""
+    from ogl_beamforming_tpu_torch.experiments import (gather_micro3,
+                                                       onehot_micro,
+                                                       onehot_micro2)
+    idx = _walk_tile(tile)
+    if form == "k7":
+        x = gather_micro3.make_inputs(dev)
+        src, src2 = gather_micro3.sources(variant, x)
+        args = (src, src2, x["idx"] if idx is None
+                else torch.from_numpy(idx).to(dev), x["w"])
+        steps = gather_micro3.STEPS if steps is None else steps
+        out = gather_micro3.kernel(variant, *args, count, steps=steps,
+                                   smem=smem)
+        return out, gather_micro3.kernel_ref(variant, *args, count)
+    mod = onehot_micro if form == "k8" else onehot_micro2
+    x = onehot_micro.make_inputs(dev)
+    args = (x["src"], x["src2"], x["idx"] if idx is None
+            else torch.from_numpy(idx).to(dev), x["w"])
+    steps = mod.STEPS if steps is None else steps
+    out = mod.gather_kernel(*args, units=count, steps=steps, smem=smem)
+    return out, mod.gather_kernel_ref(*args, units=count)
+
+
+def _walk_cases():
+    """K7's five variants at REPS 224 (turns alone) and 40 (a tail), the
+    bundle's K9 form at UNITS 28 and 2, its K8 form at 16 and 6; at steps
+    1, 3, 7 and the module's STEPS (None)."""
+    from ogl_beamforming_tpu_torch.experiments import gather_micro3
+    forms = ([("k7", v, r) for v in gather_micro3.VARIANTS for r in (224, 40)]
+             + [("k9", "gather", u) for u in (28, 2)]
+             + [("k8", "gather", u) for u in (16, 6)])
+    return [f + (s,) for f in forms for s in (1, 3, 7, None)]
+
+
+@pytest.mark.parametrize("tile", _WALK_TILES)
+@pytest.mark.parametrize("smem", [True, False])
+@pytest.mark.parametrize("case", _walk_cases(),
+                         ids=lambda c: "-".join(map(str, c)))
+def test_micro_walk_matches_plain(dev, case, smem, tile):
+    """The walk kernel against the plain versions: ``f32_direct``
+    bit-equal, the rest NRMSE 1e-6; one launch each."""
+    form, variant, count, steps = case
+    before = build.LAUNCHES["micro_gather"]
+    out, ref = _walk_case(dev, form, variant, count, steps, smem, tile)
+    assert build.LAUNCHES["micro_gather"] == before + 1
+    _micro_close(out, ref, variant in _MICRO_ADD_ONLY)
+
+
+@pytest.mark.parametrize("steps", [3, 133])
+@pytest.mark.parametrize("smem", [True, False])
+@pytest.mark.parametrize("case", [c[:3] for c in _walk_cases()
+                                  if c[3] == 1 and c[2] in (224, 28, 16)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_micro_walk_every_step_stores_the_plain_tile(dev, monkeypatch, case,
+                                                     smem, steps):
+    """As the floor kernel's test below: built with every unit storing
+    (``store_every``), every step's units write their elements over the
+    tile, so a step beyond 0 that computes an element wrongly or writes it
+    to another lane's position fails here."""
+    from ogl_beamforming_tpu_torch.experiments import (compile_source,
+                                                       gather_ab)
+    lib = compile_source(gather_ab.sources([], True)["store_every"],
+                         "store_every", "micro_gather")
+    monkeypatch.setattr(build, "library", lambda: lib)
+    form, variant, count = case
+    out, ref = _walk_case(dev, form, variant, count, steps, smem, "own")
+    _micro_close(out, ref, variant in _MICRO_ADD_ONLY)
+
+
 @pytest.mark.parametrize("smem", [True, False])
 @pytest.mark.parametrize("k8", [True, False])
 def test_micro_gather_hermite_matches_plain(dev, k8, smem):

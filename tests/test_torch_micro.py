@@ -237,43 +237,55 @@ def _listing(functions: dict) -> str:
 
 
 def _gather_counts(instructions=0, LDS=0, LDG=0, FADD=0, FMUL=0, FFMA=0,
-                   integer=0, convert=0):
+                   integer=0, convert=0, LDS128=0):
     return {"instructions": instructions, "LDS": LDS, "LDG": LDG,
-            "float": FADD + FMUL + FFMA, "FADD": FADD, "FMUL": FMUL,
-            "FFMA": FFMA, "integer": integer, "convert": convert}
+            "LDS128": LDS128, "float": FADD + FMUL + FFMA, "FADD": FADD,
+            "FMUL": FMUL, "FFMA": FFMA, "integer": integer,
+            "convert": convert}
 
 
 def test_sass_counts_the_gather_loops():
     """kernels/sass.gather_loops on a synthetic listing of each kernel.
-    K7's block-a-step ``gather_kernel``: the repetition loop (here unrolled
-    to 32 repetitions a turn) apart from the staging and remainder loops,
-    and the code in no loop.  K5/K6's persistent ``gather_floor_kernel``:
-    the staging wait (a loop without float arithmetic) left out, the
-    repetition loop inside the unit loop, the unit loop's own code (the
-    joining adds, the conversions, the store) apart from both.
-    experiments.gather_work scales each to a launch: K7 a warp per 32
-    threads of ``steps`` blocks, K5/K6 the outside code once a warp of the
-    grid and the unit loop once per (step, row)."""
+    K7's and the bundle's persistent ``gather_walk_kernel``: the lane
+    dealing and the staging wait (loops without float arithmetic) left
+    out, the walk's turn loop and its tail loop inside the unit loop, the
+    unit loop's own code (the table and index loads, the joining add, the
+    store) apart from both.  K5/K6's persistent ``gather_floor_kernel``:
+    the staging wait left out, the repetition loop inside the unit loop,
+    the unit loop's own code (the joining adds, the conversions, the store)
+    apart from both.  experiments.gather_work scales each to a launch: the
+    outside code once a warp of the grid, the unit loop once per unit (a
+    row of a step; 32 elements of a step), the walk's loops as
+    ``walk_trips`` turns them."""
     from ogl_beamforming_tpu_torch.experiments import (FLOOR_UNITS,
                                                        FLOOR_WARPS,
-                                                       GATHER_THREADS, WARP,
-                                                       gather_work)
+                                                       HERMITE_IDS,
+                                                       WALK_UNITS,
+                                                       WALK_WARPS,
+                                                       gather_work,
+                                                       walk_trips)
     from ogl_beamforming_tpu_torch.kernels import sass
-    block = ["LDG.E R2, desc[UR4][R6.64]",                  # 0x00
-             "STS [R3], R2",                                # 0x10
-             "ISETP.GE.AND P0, PT, R3, 0x800, PT",          # 0x20
-             "@!P0 BRA 0x0",                                # 0x30 staging
-             "LDS R8, [R9]",                                # 0x40
-             "I2F R10, R8",                                 # 0x50
-             "FADD R12, R12, R10",                          # 0x60 main loop
-             "FADD R13, R13, R10",                          # 0x70
-             "UIADD3 UR6, UR6, 0x20, URZ",                  # 0x80
-             "ISETP.GE.AND P1, PT, R4, UR6, PT",            # 0x90
-             "@!P1 BRA 0x60",                               # 0xa0
-             "FADD R12, R12, R10",                          # 0xb0 remainder
-             "@P2 BRA 0xb0",                                # 0xc0
-             "STG.E desc[UR4][R6.64], R12",                 # 0xd0
-             "EXIT"]                                        # 0xe0
+    walk = ["LDG.E R2, desc[UR4][R6.64]",                  # 0x00 dealing
+            "STS.U8 [R3], R2",                             # 0x10
+            "ISETP.GE.AND P0, PT, R3, 0x800, PT",          # 0x20
+            "@!P0 BRA 0x0",                                # 0x30
+            "SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [UR4], RZ",  # 0x40
+            "@!P0 BRA 0x40",                               # 0x50 wait
+            "LDS.U16 R8, [R9]",                            # 0x60 unit loop
+            "LDG.E R10, desc[UR4][R8.64]",                 # 0x70
+            "LDS.128 R12, [R9+0x10]",                      # 0x80 turn loop
+            "PRMT R16, R12, 0x7632, R17",                  # 0x90
+            "FADD R18, R16, -8.421376e+06",                # 0xa0
+            "FFMA R20, R18, R11, R20",                     # 0xb0
+            "FFMA R21, R18, R11, R21",                     # 0xc0
+            "@!P1 BRA 0x80",                               # 0xd0
+            "LDS.128 R12, [R9]",                           # 0xe0 tail
+            "FFMA R20, R18, R11, R20",                     # 0xf0
+            "@!P2 BRA 0xe0",                               # 0x100
+            "FADD R22, R20, R21",                          # 0x110
+            "STG.E desc[UR4][R6.64], R22",                 # 0x120
+            "@P3 BRA 0x60",                                # 0x130
+            "EXIT"]                                        # 0x140
     floor = ["SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [UR4], RZ",  # 0x00
              "@!P0 BRA 0x0",                                # 0x10 wait
              "LDG.E.128 R4, desc[UR4][R2.64]",              # 0x20 unit loop
@@ -290,27 +302,46 @@ def test_sass_counts_the_gather_loops():
              "IADD3 R22, R22, 0x1, RZ",                     # 0xd0
              "@P2 BRA 0x20",                                # 0xe0
              "EXIT"]                                        # 0xf0
-    text = _listing({"13gather_kernelILi13ELb1EEEvPKiS1_S1_PKfPfi": block,
-                     "13hermite_kernelILb1ELb1EEEvPKiS1_S1_PKfPfi": block,
+    walk_name = "18gather_walk_kernelILi{}ELb1EEEvPKiS1_S1_PKfPfiiiiif"
+    text = _listing({walk_name.format(16): walk,
+                     walk_name.format(HERMITE_IDS[False]): walk,
+                     "13hermite_kernelILb1ELb1EEEvPKiS1_S1_PKfPfi": walk,
                      "19gather_floor_kernelILi10ELb1EEEvPKiS1_S1_PKfPfiii":
                          floor})
     counts = sass.gather_loops(text)
-    assert set(counts) == {(13, True), (10, True)}
-    c = counts[(13, True)]
-    assert c["kernel"] == "gather_kernel" and c["unit"] is None
-    assert c["step"] == 32
-    assert c["body"] == _gather_counts(5, FADD=2, integer=1)
-    assert c["outside"] == _gather_counts(4, LDS=1, convert=1)
-    work = gather_work(c, reps=64, steps=3)
-    warps = 3 * GATHER_THREADS // WARP
-    assert work["instructions"] == warps * (4 + 2 * 5)
-    assert work["float"] == warps * 4 and work["LDS"] == warps
+    assert set(counts) == {(16, True), (HERMITE_IDS[False], True),
+                           (10, True)}
+    c = counts[(16, True)]
+    assert c["kernel"] == "gather_walk_kernel" and c["step"] is None
+    assert c["body"] == _gather_counts(6, LDS=1, LDS128=1, FADD=1, FFMA=2,
+                                       integer=1)
+    assert c["tail"] == _gather_counts(3, LDS=1, LDS128=1, FFMA=1)
+    assert c["unit"] == _gather_counts(5, LDS=1, LDG=1, FADD=1)
+    assert c["outside"] == _gather_counts(1)
+    # K7 hermite_pair at REPS 224: 112 words, 28 quads, the first in the
+    # unit loop's own code, then 6 turns and 3 tails
+    assert walk_trips(16, 224) == (6, 3)
+    work = gather_work(c, reps=224, steps=3, grid=5, variant_id=16)
+    units = 3 * WALK_UNITS
+    assert work["FFMA"] == units * (6 * 2 + 3 * 1)
+    assert work["LDS128"] == units * (6 + 3)
+    assert work["instructions"] == 5 * WALK_WARPS + units * (5 + 6 * 6
+                                                             + 3 * 3)
+    # the K9 bundle at UNITS 28: 56 words, 14 quads: the first, 3 turns and
+    # a tail
+    k9 = HERMITE_IDS[False]
+    assert walk_trips(k9, 28) == (3, 1)
+    work = gather_work(counts[(k9, True)], reps=28, steps=3, grid=5,
+                       variant_id=k9)
+    assert work["FFMA"] == units * (3 * 2 + 1 * 1)
+    assert work["LDS128"] == units * (3 + 1)
 
     f = counts[(10, True)]
     assert f["kernel"] == "gather_floor_kernel" and f["step"] == 16
     assert f["body"] == _gather_counts(6, FFMA=3, integer=2)
     assert f["unit"] == _gather_counts(7, LDS=1, LDG=1, FADD=1, integer=1,
                                        convert=1)
+    assert f["tail"] is None
     assert f["outside"] == _gather_counts(1)
     work = gather_work(f, reps=64, steps=3, grid=5)
     units = 3 * FLOOR_UNITS
@@ -322,14 +353,14 @@ def test_sass_counts_the_gather_loops():
 
 
 def test_sass_same_as_keys_the_gather_kernels():
-    """K7's and the K8/K9 bundle's kernels keep their instantiations' keys,
-    so ``same_as`` holds them against an older ``micro_gather.cu``; the
-    K5/K6 floor kernel is not keyed."""
+    """K7's and the K8/K9 bundle's kernel, ``gather_walk_kernel``, keeps
+    its instantiations' keys, so ``same_as`` holds them against an older
+    ``micro_gather.cu``; the K5/K6 floor kernel is not keyed."""
     from ogl_beamforming_tpu_torch.kernels import sass
-    assert sass.same_key("_ZN12_GLOBAL__N_113gather_kernelILi16ELb1EEEvPKiS1_"
-                         "S1_PKfPfi") == "gather_kernel Li16ELb1E"
-    assert sass.same_key("_ZN12_GLOBAL__N_114hermite_kernelILb1ELb0EEEvPKiS1"
-                         "_S1_PKfPfi") == "hermite_kernel Lb1ELb0E"
+    assert sass.same_key("_ZN12_GLOBAL__N_118gather_walk_kernelILi16ELb1EEEv"
+                         "PKiS1_S1_PKfPfiiiiif") == "gather_walk_kernel Li16ELb1E"
+    assert sass.same_key("_ZN12_GLOBAL__N_118gather_walk_kernelILi18ELb0EEEv"
+                         "PKiS1_S1_PKfPfiiiiif") == "gather_walk_kernel Li18ELb0E"
     assert sass.same_key("_ZN12_GLOBAL__N_119gather_floor_kernelILi1ELb1EEEv"
                          "PKiS1_S1_PKfPfiii") is None
 
