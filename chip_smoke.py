@@ -141,7 +141,11 @@ line:
               Beamformer.profile_device_stages of the Quickstart and of
               path B beside its stages' CUDA-event times; then a trace of
               phase 3's demodulate and of its FIR calls, their device time
-              per launch onto their rows.  Phases 5, 6, 7 and 8 end with a
+              per launch onto their rows; a profile_device_stages trace
+              that lost a launched kernel's event is taken again (up to
+              utils/profiling.TRACE_ATTEMPTS; roadmap C2), and a stage
+              still at 0 fails naming each lost kernel and its line.
+              Phases 5, 6, 7 and 8 end with a
               [trace] line naming each traced launch of the port's kernels
               whose device event the trace lacks (DeviceProfile.lost).
   8. stream   the Quickstart and paths A and B through
@@ -181,6 +185,36 @@ line:
               beside phase 8's streamed Quickstart,
               the client's copy into the region and a copy out of it
               alone, and the card's name and power limit.
+
+ 10. zbp     recorded acquisitions and display, through the examples'
+              functions (ogl_beamforming_tpu_torch.examples): a point-target
+              FORCES acquisition (int16, Hadamard-encoded, 128 ch x 128 tx
+              x 4096 samples at 40 MHz, shuffled channel mapping, drawn on
+              the card) written as .zbp v2 with a sine and with a chirp
+              emission descriptor and as v1, uncompressed, and loaded back
+              with the port's load_zbp, every field and the data bit-equal;
+              the throughput example's chain from each file (from_zbp, the
+              filter from the emission, Demodulate -> Decode -> FORCES IQ
+              DAS onto 512 x 1024): a warm-up and 32 frames with each
+              kernel once a frame, the example's lines, device ms/frame
+              with the stage split, the peak within one voxel of the
+              target, the last frame against the demodulate, decode and
+              DAS twins stage by stage (NRMSE 1e-4), the v1 frame equal to
+              the v2 sine frame; the decode sweep (17 orders, 2-256, 256
+              ch x 4096): the int16 kernel bit-equal to its twin at each,
+              its 32-frame average, GB/s, share of the byte bound and the
+              cuBLAS f32 product; point_scatterer: the B-mode peak on the
+              target, its PNG (viewer_web.encode_png_gray) decoding to
+              viewer.bmode_image's pixels; live_streaming: 20 frames
+              through a StreamingSession with a LiveView on 127.0.0.1, the
+              served frame PNG, stats and A-scan against the last frame, a
+              StopImaging POST in the dirty flag and stopping the session,
+              the X-plane and MIP endpoints over a HERCULES 24^3 volume
+              equal to the renderers; ops.das.das_from_params on CUDA
+              tensors for each family at phase 4's sizes against golden
+              (1e-3); entry()'s forward with a point target, its peak
+              checked.  The phase's launches go onto the kernel table's
+              rows as ``phase10_launches``.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1001,8 +1035,15 @@ def golden_das(p, rf, sample_count, fs, time_offset, vt=None, **kw):
     stage's sample count, sampling rate and time offset (``kw``: further
     ``DasParams`` fields)."""
     from ogl_beamforming_tpu_torch.ops import golden
+    return golden.das(rf, das_params(p, sample_count, fs, time_offset, vt,
+                                     **kw))
+
+
+def das_params(p, sample_count, fs, time_offset, vt=None, **kw):
+    """The ``DasParams`` of :func:`golden_das`."""
+    from ogl_beamforming_tpu_torch.ops import golden
     from ogl_beamforming_tpu_torch.utils.transforms import das_output_dimension
-    return golden.das(rf, golden.DasParams(
+    return golden.DasParams(
         acquisition_kind=p.acquisition_kind,
         acquisition_count=p.acquisition_count,
         channel_count=p.channel_count, sample_count=sample_count,
@@ -1018,7 +1059,7 @@ def golden_das(p, rf, sample_count, fs, time_offset, vt=None, **kw):
                             das_output_dimension(p.output_points[:3])),
         transmit_receive_orientation=p.transmit_receive_orientation,
         transmit_angle=float(p.focal_vector[0]),
-        focus_depth=float(p.focal_vector[1]), **kw))
+        focus_depth=float(p.focal_vector[1]), **kw)
 
 
 def beamformer(dev, p, shaders, data_kind, filters=(), sparse=None):
@@ -2170,7 +2211,31 @@ def host_ms(fn, runs=RUNS) -> float:
     return statistics.median(times)
 
 
-def phase_trace(dev) -> None:
+def stage_times(label, bf, rf, caught) -> list:
+    """``Beamformer.profile_device_stages`` of ``rf``: every stage must take
+    device time.  A trace that lost a launched kernel's event is taken
+    again (up to ``TRACE_ATTEMPTS``; roadmap C2); when a stage still comes
+    out 0, the failure names each lost kernel with its line from the
+    ``LostKernelEvents`` warnings in ``caught``."""
+    from ogl_beamforming_tpu_torch.utils.profiling import (TRACE_ATTEMPTS,
+                                                           LostKernelEvents)
+    first = len(caught)
+    stages = bf.profile_device_stages(rf)
+    lost = [str(w.message) for w in caught[first:]
+            if issubclass(w.category, LostKernelEvents)]
+    check(all(t > 0 for _, t in stages),
+          f"{label} profile_device_stages: "
+          + ", ".join(f"{k.name} {t * 1e3:.4f} ms" for k, t in stages)
+          + f"; {len(lost)} of at most {TRACE_ATTEMPTS} traces lost a "
+          f"launched kernel's event" + (": " + "; ".join(lost) if lost
+                                        else ""))
+    if lost:
+        print(f"[trace] {label} profile_device_stages: {len(lost)} traces "
+              f"lost a launched kernel's event and were taken again")
+    return stages
+
+
+def phase_trace(dev, caught) -> None:
     from ogl_beamforming_tpu_torch import DataKind
     from ogl_beamforming_tpu_torch.models import presets
     from ogl_beamforming_tpu_torch.utils.profiling import device_time
@@ -2185,8 +2250,7 @@ def phase_trace(dev) -> None:
     prof = device_time(frame, raw)
     print_profile("Quickstart frame (push_data_with_compute)", prof,
                   host_ms(lambda: frame(raw)))
-    stages = bf.profile_device_stages(raw.reshape(c, a, s))
-    check(all(t > 0 for _, t in stages), f"profile_device_stages {stages}")
+    stages = stage_times("Quickstart", bf, raw.reshape(c, a, s), caught)
     print("[trace] Quickstart profile_device_stages: " + ", ".join(
         f"{k.name} {t * 1e3:.3f} ms" for k, t in stages))
 
@@ -2200,8 +2264,7 @@ def phase_trace(dev) -> None:
     for _ in range(RUNS):
         bf.push_data_with_compute(raw)
     _, split = stage_split(bf, 1, RUNS)
-    stages = bf.profile_device_stages(raw.reshape(c, a, s))
-    check(all(t > 0 for _, t in stages), f"profile_device_stages {stages}")
+    stages = stage_times("path B", bf, raw.reshape(c, a, s), caught)
     print(f"[trace] path B stages by CUDA events {split} ms; "
           "profile_device_stages (kernels by the trace): " + ", ".join(
               f"{k.name} {t * 1e3:.4f} ms" for k, t in stages))
@@ -2622,6 +2685,612 @@ def phase_serve(dev, smi_line, streamed_ms) -> None:
           f"(phase 8, this process) {streamed_ms:.3f} ms/frame; {smi_line}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: recorded acquisitions and display.  A point-target FORCES
+# acquisition at full width written as .zbp files and loaded back, the
+# throughput chain of examples/throughput.py run from each, the decode
+# sweep of examples/decode_sweep.py, the point_scatterer and live_streaming
+# examples with the viewers and the browser live view, das_from_params on
+# every family and entry().  Every kernel launch of the phase is counted
+# onto its table row (``phase10_launches``).
+
+ZBP_SHAPE = (128, 128, 4096)   # channels, transmits, samples at 40 MHz
+ZBP_FS, ZBP_FD, ZBP_SOS, ZBP_PITCH = 40e6, 7.8e6, 1540.0, 0.3e-3
+# the target, a voxel of the throughput grid (512 x 1024 over +-60 mm x
+# 10-165 mm): x = 19.14 mm, under the 0-38.1 mm aperture; z = 40.0 mm,
+# inside the record (4096 samples at 40 MHz reach about 79 mm)
+ZBP_TARGET_VOXEL = (337, 198, 0)
+ZBP_CHIRP = (2e-6, 1e6, 4e6)   # duration, min and max baseband frequency
+THROUGHPUT_FRAMES = 32         # the example's rolling average
+LIVE_FRAMES = 20
+HTTP_TIMEOUT = 30              # seconds for a request to the live view
+
+
+def zbp_echoes(dev, dist, waveform) -> np.ndarray:
+    """Echoes of a point target whose (channel, transmit) path lengths are
+    ``dist`` (C, A) metres, drawn on the card: ``waveform(u)`` of each
+    sample's time ``u`` after the path's delay, Hadamard-encoded across
+    transmits, scaled to 30000 and cut to int16 (C, A*S) on the host."""
+    from ogl_beamforming_tpu_torch.ops import decode
+    c, a, s = ZBP_SHAPE
+    t = torch.arange(s, device=dev, dtype=torch.float64) / ZBP_FS
+    tau = torch.from_numpy(dist / ZBP_SOS).to(dev)
+    u = (t[None, None, :] - tau[:, :, None]).to(torch.float32)
+    echo = waveform(u)
+    encoded = torch.matmul(decode.hadamard_matrix(a, dev).T, echo)
+    encoded *= 30000.0 / encoded.abs().max()
+    return encoded.clamp(-32768, 32767).to(torch.int16).reshape(
+        c, -1).cpu().numpy()
+
+
+def sine_burst(u):
+    """The cosine burst of :func:`encode_echoes` at the carrier ZBP_FD."""
+    env = torch.exp(-0.5 * (u / (2 / ZBP_FD / 4)) ** 2)
+    return env * torch.cos(2 * np.pi * ZBP_FD * u)
+
+
+def chirp_burst(u):
+    """The chirp the matched filter of a chirp emission compresses, on the
+    carrier ZBP_FD: the filter's taps (``utils.filters.baseband_chirp``,
+    reversed and conjugated, at the pair rate fs / 2) conjugated back.  The
+    FIR correlates (y[n] = sum_j h[j] x[n - L + 1 + j]), so the echo whose
+    baseband is conj(h) compresses, and its energy centroid, tap
+    (L - 1) / 2, arrives at the path's delay: the delay the filter's
+    first-moment compensation assumes."""
+    duration, f_min, f_max = ZBP_CHIRP
+    rate = ZBP_FS / 2
+    length = int(duration * rate)
+    v = (length - 1) / 2 - u * rate          # the chirp's own tap index
+    fc = f_min + v * (f_max - f_min) / (2 * length)
+    phase = 2 * np.pi * fc * v / rate + 2 * np.pi * ZBP_FD * u
+    # utils.filters.tukey_window(v / length, 0.2)
+    x, r = v / length, 0.2
+    w = torch.where(x < r / 2, 0.5 * (1 + torch.cos(2 * np.pi * (x - r / 2)
+                                                    / r)), 1.0)
+    w = torch.where(x >= 1 - r / 2,
+                    0.5 * (1 + torch.cos(2 * np.pi * (x - 1 + r / 2) / r)), w)
+    inside = (v >= 0) & (v < length)
+    return torch.where(inside, w * torch.cos(phase), torch.zeros_like(u))
+
+
+def zbp_acquisition(dev, emission):
+    """The point-target ZbpFile (v2, ``emission`` "sine" or "chirp") and
+    the target's voxel: raw rows in the scanner's order, a shuffled channel
+    mapping."""
+    from ogl_beamforming_tpu_torch.models.presets import from_zbp
+    from ogl_beamforming_tpu_torch.params.enums import (
+        AcquisitionKind, DataKind, DecodeMode)
+    from ogl_beamforming_tpu_torch.utils.zbp import ZbpFile
+
+    c, a, s = ZBP_SHAPE
+    mapping = np.random.default_rng(14).permutation(c).astype(np.int16)
+    z = ZbpFile(
+        version=(2, 0), raw_data_dimension=(a * s, c, 1, 1),
+        data_kind=DataKind.Int16, decode_mode=DecodeMode.Hadamard,
+        sampling_mode=0, sampling_frequency=ZBP_FS,
+        demodulation_frequency=ZBP_FD, speed_of_sound=ZBP_SOS,
+        sample_count=s, channel_count=c, receive_event_count=a,
+        xdc_transform=np.eye(4, dtype=np.float32),
+        xdc_element_pitch=np.array([ZBP_PITCH, ZBP_PITCH], np.float32),
+        time_offset=0.0, acquisition_kind=AcquisitionKind.FORCES,
+        channel_mapping=mapping,
+        emissions=[{"kind": 0, "cycles": 2.0, "frequency": ZBP_FD}
+                   if emission == "sine" else
+                   {"kind": 1, "duration": ZBP_CHIRP[0],
+                    "min_frequency": ZBP_CHIRP[1],
+                    "max_frequency": ZBP_CHIRP[2]}])
+    params, _ = from_zbp(z)
+    target = target_world(params, ZBP_TARGET_VOXEL)
+    x = np.arange(c) * ZBP_PITCH
+    rx_d = np.sqrt((target[0] - x) ** 2 + target[2] ** 2)
+    tx_d = np.sqrt((target[1] - ZBP_PITCH * c / 2) ** 2 + target[2] ** 2
+                   + (target[0] - x) ** 2)
+    canonical = zbp_echoes(dev, rx_d[:, None] + tx_d[None, :],
+                           sine_burst if emission == "sine" else chirp_burst)
+    raw = np.empty_like(canonical)
+    raw[mapping] = canonical            # prepare_rf reads raw[mapping[c]]
+    z.data = raw.ravel()
+    return z
+
+
+def zbp_mismatches(got, want) -> list:
+    """The fields of two ZbpFiles that differ: arrays and floats compared
+    bit for bit (floats as the file's float32)."""
+    import dataclasses
+    bad = []
+    for f in dataclasses.fields(want):
+        g, w = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(w, np.ndarray) or isinstance(g, np.ndarray):
+            same = (g is not None and w is not None
+                    and np.asarray(g).dtype == np.asarray(w).dtype
+                    and np.asarray(g).tobytes() == np.asarray(w).tobytes())
+        elif f.name == "transmit_focus":
+            same = ([np.float32(v) for v in dataclasses.astuple(g)]
+                    == [np.float32(v) for v in dataclasses.astuple(w)])
+        elif f.name == "emissions":
+            same = ([{k: np.float32(v) for k, v in e.items()} for e in g]
+                    == [{k: np.float32(v) for k, v in e.items()} for e in w])
+        elif isinstance(w, float):
+            same = np.float32(g) == np.float32(w)
+        else:
+            same = g == w
+        if not same:
+            bad.append(f.name)
+    return bad
+
+
+def zbp_round_trip(dev, tmp) -> dict:
+    """The v2 sine, v2 chirp and v1 files written and loaded back with the
+    port's loader, every field and the data bit-equal to what was written;
+    returns {label: loaded ZbpFile}."""
+    import dataclasses
+    from pathlib import Path
+
+    from ogl_beamforming_tpu_torch.params.enums import DataKind
+    from ogl_beamforming_tpu_torch.utils import zbp
+
+    t0 = time.perf_counter()
+    sine, chirp = zbp_acquisition(dev, "sine"), zbp_acquisition(dev, "chirp")
+    made = time.perf_counter() - t0
+    v1_want = dataclasses.replace(
+        sine, version=(1, 1), data_kind=DataKind.Int16, sampling_mode=0,
+        emissions=[])
+    for name, dt in (("channel_mapping", np.int16),
+                     ("steering_angles", np.float32),
+                     ("focal_depths", np.float32),
+                     ("sparse_elements", np.int16)):
+        table = np.zeros(256, dt)
+        src = getattr(sine, name)
+        if src is not None:
+            table[:len(src)] = src
+        setattr(v1_want, name, table)
+    loaded = {}
+    for label, z, want, save in (
+            ("v2 sine", sine, sine,
+             lambda p, z: zbp.save_zbp_v2(p, z, compress=False)),
+            ("v2 chirp", chirp, chirp,
+             lambda p, z: zbp.save_zbp_v2(p, z, compress=False)),
+            ("v1", sine, v1_want, zbp.save_zbp_v1)):
+        path = Path(tmp) / (label.replace(" ", "_") + ".zbp")
+        save(path, z)
+        t0 = time.perf_counter()
+        got = zbp.load_zbp(path)
+        load_s = time.perf_counter() - t0
+        bad = zbp_mismatches(got, want)
+        check(not bad, f"zbp {label}: fields {bad} differ from the written")
+        print(f"[zbp] {label}: {path.stat().st_size} bytes written and "
+              f"loaded back in {load_s:.2f} s, every field and the "
+              f"{got.data.size} int16 samples bit-equal")
+        loaded[label] = got
+    print(f"[zbp] acquisitions {ZBP_SHAPE} int16 Hadamard-encoded, shuffled "
+          f"mapping, drawn on the card in {made:.2f} s")
+    return loaded
+
+
+def throughput_chain(label, dev, z, smi_line) -> dict:
+    """The throughput example on ``z``: a warm-up frame, then
+    THROUGHPUT_FRAMES frames with the counts set to 0 just before and read
+    just after (Demodulate, Decode and DAS once a frame), the peak within
+    one voxel of the target, the last frame against the plain versions
+    stage by stage on the card (NRMSE 1e-4).  Returns the launches by
+    table row and the last frame."""
+    from ogl_beamforming_tpu_torch.examples import throughput
+    from ogl_beamforming_tpu_torch.kernels import build
+    from ogl_beamforming_tpu_torch.ops import das as das_ops
+    from ogl_beamforming_tpu_torch.ops import decode, filtering
+    from ogl_beamforming_tpu_torch.params.enums import ContrastMode
+    from ogl_beamforming_tpu_torch.runtime.upload import prepare_rf
+
+    bf = throughput.configure(z, dev)
+    raw = throughput.raw_frame(z)
+    bf.push_data_with_compute(raw)
+    torch.cuda.synchronize()
+    build.LAUNCHES.clear()
+    lines = []
+    wall = throughput.run(bf, raw, THROUGHPUT_FRAMES, out=lines.append)
+    launches = dict(build.LAUNCHES)
+    want = {"demodulate": THROUGHPUT_FRAMES,
+            "decode_hadamard": THROUGHPUT_FRAMES,
+            "das_forces": THROUGHPUT_FRAMES}
+    check(launches == want, f"throughput {label}: launches {launches}, "
+          f"want each of {want} once a frame")
+    for line in lines:
+        print(f"[throughput {label}] {line}")
+    frame = bf.get_last_frames(1)[-1]
+    out = frame.data
+    check(out.shape == (512, 1024, 1) and out.dtype == torch.complex64,
+          f"throughput {label}: frame {tuple(out.shape)} {out.dtype}")
+    img = frame.to_numpy()
+    peak = peak_check(f"throughput {label}", np.abs(img), ZBP_TARGET_VOXEL)
+
+    plan = bf._blocks[0]._plan
+    st = plan.descriptor.stages
+    p = bf._blocks[0].parameters
+    x = torch.from_numpy(prepare_rf(raw, bf._blocks[0].channel_mapping,
+                                    p.channel_count, p.acquisition_count,
+                                    p.sample_count, ContrastMode.NoContrast,
+                                    plan.descriptor.data_kind)).to(dev)
+    iq = filtering.demodulate_ref(x, plan.dyn["taps0"],
+                                  plan.dyn["demodulation_frequency"],
+                                  plan.dyn["sampling_frequency"],
+                                  st[0].decimation_rate, st[0].filter_complex,
+                                  plan.dyn["phasor0"])
+    dec = decode.decode_hadamard_ref(iq, plan.dyn["hadamard1"])
+    ref = das_ops.das_ref(dec.contiguous(), plan.dyn["das"], st[2].das)
+    err = compare(out, ref, 1e-4, f"throughput {label} vs plain chain")
+    stage, split = stage_split(bf, 0, THROUGHPUT_FRAMES)
+    fp = bf._blocks[0].filters[0]
+    print(f"[throughput {label}] {fp.parameters.kind.name} filter "
+          f"{fp.length} taps ({'complex' if fp.complex else 'real'}) at "
+          f"{fp.parameters.sampling_frequency / 1e6:g} MHz; peak {peak} vs "
+          f"target {ZBP_TARGET_VOXEL}; vs demodulate, decode and DAS twins "
+          f"stage by stage max abs err {err:.3e}; device ms/frame "
+          f"{float(stage.sum()):.3f} ({split}, median CUDA events over "
+          f"{THROUGHPUT_FRAMES}); end to end {statistics.median(wall) * 1e3:.3f}"
+          f" ms/frame (median host clock, the example's: prepare_rf, upload, "
+          f"wait); {smi_line}")
+    return ({"demodulate": launches.get("demodulate", 0),
+             "decode_hadamard_f32": launches.get("decode_hadamard", 0),
+             "das_forces_iq": launches.get("das_forces", 0)}, img)
+
+
+def decode_sweep_phase(dev, smi_line) -> int:
+    """examples/decode_sweep at every order: the kernel bit-equal to its
+    twin, the example's 32-frame average, GB/s, its share of the byte
+    bound and the cuBLAS f32 product at the same order.  Returns the
+    decode launches."""
+    from ogl_beamforming_tpu_torch.examples import decode_sweep
+    from ogl_beamforming_tpu_torch.kernels import build
+    from ogl_beamforming_tpu_torch.ops import decode
+
+    launches = 0
+    for t in decode_sweep.TRANSMIT_COUNTS:
+        rf, h = decode_sweep.sweep_input(t, dev, seed=t)
+        before = build.LAUNCHES["decode_hadamard"]
+        avg_ms, out = decode_sweep.time_order(rf, h)
+        launches += build.LAUNCHES["decode_hadamard"] - before
+        ref = decode.decode_hadamard_ref(rf, h)
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref),
+              f"decode sweep order {t}: kernel != twin (max abs err "
+              f"{float((out - ref).abs().max()):.3e})")
+        nbytes = rf.numel() * 2 + out.numel() * 4 + t * t
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        rf32 = rf.to(torch.float32)
+        h32 = h.to(torch.float32)
+        lib_ms = median_ms(lambda: torch.matmul(h32, rf32))
+        print(f"[decode_sweep] "
+              f"{decode_sweep.order_line(t, avg_ms, decode_sweep.rf_gbs(rf, avg_ms))}"
+              f" | bit-equal | byte bound {bound_ms:.4f} ms, "
+              f"{bound_ms / avg_ms:.3f} of it | cuBLAS f32 matmul "
+              f"{lib_ms:.4f} ms; {smi_line}")
+        del rf, h, out, ref, rf32
+    return launches
+
+
+def decode_png_gray(png: bytes) -> np.ndarray:
+    """The 8-bit grayscale pixels of a PNG from ``encode_png_gray`` (zlib
+    IDAT, filter 0 on every row)."""
+    import struct
+    import zlib
+    check(png[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG")
+    pos, idat, shape = 8, b"", None
+    while pos < len(png):
+        (n,) = struct.unpack(">I", png[pos:pos + 4])
+        tag, body = png[pos + 4:pos + 8], png[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", body[:8])
+            shape = (h, w)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        shape[0], shape[1] + 1)
+    check(not rows[:, 0].any(), "PNG rows use a filter")
+    return rows[:, 1:]
+
+
+def png_pixels(img: np.ndarray) -> np.ndarray:
+    """``encode_png_gray``'s quantisation of a [0, 1] image."""
+    return (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
+
+
+def point_scatterer_phase(dev, tmp) -> dict:
+    """examples/point_scatterer at its size: a warm-up and RUNS frames
+    (Decode and DAS once a frame), the B-mode peak on the target (within a
+    voxel laterally; axially within a voxel of the quarter carrier period
+    by which a real sine burst's |RF| peak sits off its envelope's
+    centre), and the PNG through ``encode_png_gray`` decoding to the
+    pixels of ``viewer.bmode_image``."""
+    from pathlib import Path
+
+    from ogl_beamforming_tpu_torch import viewer
+    from ogl_beamforming_tpu_torch.examples import point_scatterer as ps
+    from ogl_beamforming_tpu_torch.kernels import build
+    from ogl_beamforming_tpu_torch.viewer_web import encode_png_gray
+
+    p = ps.parameters()
+    target = ps.target_for()
+    raw = ps.raw_frame(p, target)
+    bf = ps.configure(p, dev)
+    bf.push_data_with_compute(raw)
+    torch.cuda.synchronize()
+    build.LAUNCHES.clear()
+    for _ in range(RUNS):
+        frame = bf.push_data_with_compute(raw)
+    launches = dict(build.LAUNCHES)
+    check(launches == {"decode_hadamard": RUNS, "das_forces": RUNS},
+          f"point_scatterer: launches {launches}")
+    img = viewer.bmode_image(frame, db_cutoff=-50)
+    wx, wz = ps.image_peak_mm(img, p)
+    nx, nz = int(p.output_points[0]), int(p.output_points[1])
+    dx = (ps.C - 1) * ps.PITCH * 1e3 / (nx - 1)
+    dz = (ps.DEPTH_MM[1] - ps.DEPTH_MM[0]) / (nz - 1)
+    quarter = ps.SOS / ps.F0 / 4 / 2 * 1e3     # mm of depth
+    off_x, off_z = abs(wx - target[0] * 1e3), abs(wz - target[2] * 1e3)
+    check(off_x <= dx and off_z <= quarter + dz,
+          f"point_scatterer: image peak ({wx:.3f}, {wz:.3f}) mm, target "
+          f"({target[0] * 1e3:.3f}, {target[2] * 1e3:.3f}) mm")
+    path = Path(tmp) / "point_scatterer.png"
+    path.write_bytes(encode_png_gray(img))
+    pixels = decode_png_gray(path.read_bytes())
+    check(np.array_equal(pixels, png_pixels(img)),
+          "point_scatterer: the PNG's pixels are not bmode_image's")
+    print(f"[point_scatterer] {ps.C}x{ps.A}x{ps.S} -> {nx}x{nz}: image peak "
+          f"({wx:.3f}, {wz:.3f}) mm, target ({target[0] * 1e3:.3f}, "
+          f"{target[2] * 1e3:.3f}) mm (voxel {dx:.4f} x {dz:.4f} mm, a "
+          f"quarter period {quarter:.4f} mm); launches {launches}; PNG "
+          f"{path.stat().st_size} bytes decodes to bmode_image's "
+          f"{pixels.shape} pixels")
+    return launches
+
+
+def http(method, url, body=None):
+    import urllib.request
+    req = urllib.request.Request(url, method=method, data=None if body is None
+                                 else json.dumps(body).encode())
+    with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+        return r.read()
+
+
+def live_phase(dev) -> dict:
+    """examples/live_streaming on the card: a StreamingSession with a
+    LiveView on 127.0.0.1 (a free port), LIVE_FRAMES frames of the orbiting
+    target with the counts set to 0 just before; the served PNG, stats and
+    A-scan against the last frame; a StopImaging POST in the dirty flag and
+    stopping the session; the X-plane and MIP endpoints over a HERCULES
+    volume beamformed on the card (the phase 4 canary's 16 x 16 x 512 ->
+    24^3) equal to the renderers' pixels."""
+    from ogl_beamforming_tpu_torch import viewer, viewer_xplane
+    from ogl_beamforming_tpu_torch.examples import live_streaming as ls
+    from ogl_beamforming_tpu_torch.kernels import build
+    from ogl_beamforming_tpu_torch.models import presets
+    from ogl_beamforming_tpu_torch.params.enums import LiveImagingDirtyFlags
+    from ogl_beamforming_tpu_torch.runtime.streaming import StreamingSession
+    from ogl_beamforming_tpu_torch.utils.transforms import das_transform_3d
+    from ogl_beamforming_tpu_torch.viewer_web import LiveView
+
+    bf = ls.configure(dev)
+    view = LiveView(bf, host="127.0.0.1", port=0).start()
+    views = [view]
+    try:
+        with StreamingSession(bf) as session:
+            session.submit(ls.frame_for_target(ls.orbit_target(0))).result(
+                timeout=STREAM_TIMEOUT)
+            session.drain(timeout=STREAM_TIMEOUT)
+            rows = bf.stats._frame_index
+            build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            handle = ls.stream(bf, session, LIVE_FRAMES, out=print)
+            last = handle.result(timeout=STREAM_TIMEOUT)
+            session.drain(timeout=STREAM_TIMEOUT)
+            streamed = (time.perf_counter() - t0) * 1e3 / LIVE_FRAMES
+            launches = dict(build.LAUNCHES)
+            check(launches == {"decode_hadamard": LIVE_FRAMES,
+                               "das_forces": LIVE_FRAMES},
+                  f"live_streaming: launches {launches}")
+            new_rows = bf.stats._frame_index - rows
+            check(new_rows == LIVE_FRAMES,
+                  f"live_streaming: {new_rows} new stats rows")
+            check(bf.get_last_frames(1)[-1] is last,
+                  "live_streaming: the last frame is not the backlog's")
+
+            png = decode_png_gray(http("GET", view.url + "frame.png"))
+            want = png_pixels(viewer.bmode_image(last))
+            check(np.array_equal(png, want),
+                  "live view: frame.png is not bmode_image of the last frame")
+            stats = json.loads(http("GET", view.url + "stats.json"))
+            check([s["name"] for s in stats["stages"]] == ["Decode", "DAS"]
+                  and stats["frame_ms"] > 0, f"live view: stats {stats}")
+            ascan = json.loads(http("GET", view.url + "ascan.json?frac=0.5"))
+            line = viewer.a_scan(last, ascan["lateral_index"])
+            check(np.allclose(np.asarray(ascan["values"]) * ascan["peak"],
+                              line, rtol=1e-5),
+                  "live view: ascan.json is not a_scan of the last frame")
+            stop = json.loads(http("POST", view.url + "live", {"stop": True}))
+            flags = bf.live_parameters_get_dirty_flag()
+            check(stop["ok"] and flags & LiveImagingDirtyFlags.StopImaging,
+                  f"live view: StopImaging POST gave {stop}, flags {flags}")
+            dropped = session.submit(ls.frame_for_target(
+                ls.orbit_target(LIVE_FRAMES))).result(timeout=STREAM_TIMEOUT)
+            check(dropped is None and session.stop_requested,
+                  "live view: the session did not stop")
+
+        ph, pipe = presets.hercules_3d(channel_count=16, acquisition_count=16,
+                                       sample_count=512,
+                                       output_points=(24, 24, 24))
+        ap = 15 * float(ph.xdc_element_pitch[0])
+        ph.das_voxel_transform = das_transform_3d([0, 0, 2e-3],
+                                                  [ap, ap, 12e-3])
+        raw = np.random.default_rng(10).integers(-2048, 2048, (16, 16 * 512),
+                                                 dtype=np.int16)
+        vbf = beamformer(dev, ph, pipe.shaders, pipe.data_kind)
+        volume = vbf.push_data_with_compute(raw)
+        vview = LiveView(vbf, host="127.0.0.1", port=0).start()
+        views.append(vview)
+        vol = viewer_xplane.volume_bmode(volume)
+        xplane = decode_png_gray(http(
+            "GET", vview.url + "xplane.png?ox=0.1&oy=-0.2&oz=0&size=128"))
+        mip = decode_png_gray(http("GET", vview.url + "mip.png?size=96"))
+        check(np.array_equal(xplane, png_pixels(viewer_xplane.render_xplane(
+            vol, [0.1, -0.2, 0.0], size=128))) and xplane.max() > 0,
+              "live view: xplane.png is not render_xplane of the volume")
+        check(np.array_equal(mip, png_pixels(viewer_xplane.render_mip(
+            vol, size=96))) and mip.max() > 0,
+              "live view: mip.png is not render_mip of the volume")
+    finally:
+        for v in views:
+            thread = v._thread
+            v.stop()
+            thread.join(HTTP_TIMEOUT)
+    check(not any(v._thread.is_alive() for v in views),
+          "live view: a server thread outlived stop()")
+    print(f"[live_streaming] {LIVE_FRAMES} frames through a StreamingSession "
+          f"with a LiveView on 127.0.0.1: launches {launches}, "
+          f"{new_rows} new stats rows, {streamed:.3f} ms/frame streamed; "
+          f"frame.png = bmode_image of the last frame, stats.json "
+          f"{stats['frame_ms']:.3f} ms/frame, ascan.json = a_scan; "
+          f"StopImaging in the dirty flag and the next frame dropped; "
+          f"xplane.png and mip.png of a HERCULES 24^3 volume = "
+          f"render_xplane and render_mip")
+    return launches
+
+
+def das_from_params_phase(dev) -> dict:
+    """ops.das.das_from_params on CUDA tensors for each family at the
+    phase 4 canaries' configurations, against golden (NRMSE 1e-3)."""
+    from ogl_beamforming_tpu_torch import DataKind
+    from ogl_beamforming_tpu_torch.kernels import build
+    from ogl_beamforming_tpu_torch.models import presets
+    from ogl_beamforming_tpu_torch.ops import golden
+    from ogl_beamforming_tpu_torch.ops.das import das_from_params
+    from ogl_beamforming_tpu_torch.utils.transforms import (
+        das_transform_2d_xz, das_transform_3d)
+
+    rng = np.random.default_rng(41)
+    cases = []
+    pf, _ = presets.forces_compounding(channel_count=32, transmit_count=16,
+                                       sample_count=1024,
+                                       output_points=(64, 64),
+                                       demodulate=False)
+    pf.das_voxel_transform = das_transform_2d_xz(
+        [0, 2e-3], [31 * float(pf.xdc_element_pitch[0]), 16e-3])
+    cases.append(("FORCES 32x16x1024 -> 64x64", "das_forces", pf, {}, False))
+    ph, _ = presets.hercules_3d(channel_count=16, acquisition_count=16,
+                                sample_count=512, output_points=(24, 24, 24))
+    ap = 15 * float(ph.xdc_element_pitch[0])
+    ph.das_voxel_transform = das_transform_3d([0, 0, 2e-3], [ap, ap, 12e-3])
+    cases.append(("HERCULES 16x16x512 -> 24^3", "das_hercules", ph, {},
+                  False))
+    pu, _, sparse = presets.uforces_volumetric(
+        channel_count=32, acquisition_count=16, sample_count=512,
+        output_points=(24, 24, 24))
+    ap = 31 * float(pu.xdc_element_pitch[0])
+    pu.das_voxel_transform = das_transform_3d([0, -ap / 2, 2e-3],
+                                              [ap, ap / 2, 12e-3])
+    cases.append(("uFORCES + coherency 32x16x512 -> 24^3",
+                  "das_forces_coh3d", pu,
+                  dict(sparse=True, sparse_elements=sparse,
+                       coherency_weighting=True), False))
+    pa, _ = presets.plane_wave_2d(
+        channel_count=64, sample_count=1024, output_points=(64, 64),
+        lateral_mm=(-2.0, 14.0), axial_mm=(5.0, 15.0),
+        data_kind=DataKind.Float32Complex)
+    cases.append(("Flash IQ 64x1x1024 -> 64x64", "das_rca", pa, {}, True))
+
+    launches = {}
+    for label, row, p, kw, iq in cases:
+        s = p.sample_count
+        dp = das_params(p, s, p.sampling_frequency, p.time_offset, **kw)
+        shape = (p.channel_count, p.acquisition_count, s)
+        rf = rng.standard_normal(shape).astype(np.float32)
+        if iq:
+            rf = (rf + 1j * rng.standard_normal(shape)).astype(np.complex64)
+        before = sum(build.LAUNCHES.values())
+        out = das_from_params(torch.from_numpy(rf).to(dev), dp)
+        launches[row] = sum(build.LAUNCHES.values()) - before
+        check(launches[row] == 1, f"das_from_params {label}: "
+              f"{launches[row]} launches")
+        ref = golden.das(rf, dp)
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        errs = []
+        for o, r in zip(outs, refs):
+            check(o.is_cuda, f"das_from_params {label}: not on the card")
+            o = o.cpu().numpy()
+            check(o.shape == r.shape and np.isfinite(o).all(),
+                  f"das_from_params {label}: {o.shape} vs {r.shape}")
+            errs.append(nrmse(r, o))
+        check(max(errs) <= 1e-3, f"das_from_params {label}: golden NRMSE "
+              f"{errs} > 1e-3")
+        print(f"[das_from_params] {label} on CUDA tensors vs golden: NRMSE "
+              + ", ".join(f"{e:.3e}" for e in errs))
+    return launches
+
+
+def entry_phase(dev) -> dict:
+    """entry()'s forward once on the card with a point-target frame: the
+    peak within one voxel of the target, Decode and DAS launched once."""
+    from ogl_beamforming_tpu_torch import entry
+    from ogl_beamforming_tpu_torch.kernels import build
+    from ogl_beamforming_tpu_torch.ops import decode
+
+    forward, (rf,) = entry.entry()
+    check(rf.is_cuda and not rf.any(), "entry(): example frame")
+    c, a, s = rf.shape
+    p = entry.flagship_parameters(c, a, s, 128, 128)
+    voxel = (64, 40, 0)
+    raw = synthesize_forces_frame(
+        c, a, s, p.sampling_frequency, p.speed_of_sound, entry.PITCH,
+        target_world(p, voxel), p.demodulation_frequency,
+        decode.hadamard_matrix(a, "cpu").numpy())
+    forward(torch.from_numpy(raw.reshape(c, a, s)).to(dev))   # warm-up
+    torch.cuda.synchronize()
+    build.LAUNCHES.clear()
+    out = forward(torch.from_numpy(raw.reshape(c, a, s)).to(dev))
+    launches = dict(build.LAUNCHES)
+    check(launches == {"decode_hadamard": 1, "das_forces": 1},
+          f"entry(): launches {launches}")
+    check(out.is_cuda and tuple(out.shape) == (128, 128, 1),
+          f"entry(): output {tuple(out.shape)}")
+    peak = peak_check("entry()", out.cpu().numpy(), voxel)
+    print(f"[entry] forward on the card: {tuple(out.shape)}, peak {peak} vs "
+          f"target {voxel}; launches {launches}")
+    return launches
+
+
+def phase_zbp(dev, smi_line) -> dict:
+    """Phase 10; returns its kernel launches by table row."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    counts: dict = {}
+
+    def add(launches):
+        for k, n in launches.items():
+            counts[k] = counts.get(k, 0) + n
+
+    with tempfile.TemporaryDirectory(prefix="zbp_smoke_") as tmp:
+        files = zbp_round_trip(dev, tmp)
+        frames = {}
+        for label, z in files.items():
+            launches, frames[label] = throughput_chain(label, dev, z,
+                                                       smi_line)
+            add(launches)
+        check(np.array_equal(frames["v1"], frames["v2 sine"]),
+              "throughput: the v1 file's frame differs from the v2 sine's")
+        print("[throughput] the v1 file's frame is bit-equal to the v2 sine "
+              "file's (same data, the Kaiser filter by default)")
+        add({"decode_hadamard": decode_sweep_phase(dev, smi_line)})
+        add(point_scatterer_phase(dev, tmp))
+    add(live_phase(dev))
+    add(das_from_params_phase(dev))
+    add(entry_phase(dev))
+    print(f"[zbp] phase 10 launches by table row {counts}; phase took "
+          f"{time.perf_counter() - t0:.1f} s; {smi_line}")
+    return counts
+
+
 def print_lost(phases: str, caught: list) -> None:
     """The traces of ``phases`` that lack a kernel event their call launched
     (utils/profiling.device_time warns of each, naming the kernel and the
@@ -2667,14 +3336,16 @@ def main() -> None:
         print_lost("1-5", caught)
         rows += phase_micro(dev, smi_line)
         print_lost("6", caught)
-        phase_trace(dev)
+        phase_trace(dev, caught)
         phase_filter_traces()
         print_lost("7", caught)
         streamed = phase_stream(dev, smi_line)
         print_lost("8", caught)
     phase_serve(dev, smi_line, streamed)
+    zbp_launches = phase_zbp(dev, smi_line)
     for row in rows:
         check(row["launches"] > 0, f"{row['name']} never launched on its path")
+        row["phase10_launches"] = zbp_launches.get(row["name"], 0)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

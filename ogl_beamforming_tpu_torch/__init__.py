@@ -12,8 +12,10 @@ The package imports nothing of ``ogl_beamforming_tpu`` and never imports
 jax.  The jax-free modules it needs are its own copies, at the same relative
 paths and kept equal to the originals by ``tests/test_torch_pipeline.py``:
 ``params/{constants,enums,types}``, ``utils/{hadamard,transforms,filters}``,
-``pipeline/{spec,stats}``, ``runtime/upload``, ``models/presets`` and the
-NumPy golden oracle ``ops/golden``.
+``pipeline/{spec,stats}``, ``runtime/upload``, ``models/presets``, the
+NumPy golden oracle ``ops/golden``, the ``.zbp`` loader ``utils/zbp`` and
+the viewers (``viewer_xplane`` a copy; ``viewer`` and ``viewer_web`` copies
+but for the import of ``to_host``), held equal by the tests.
 
 Layout:
   params/    parameter schema (copies)
@@ -26,6 +28,15 @@ Layout:
   runtime/   RF preparation on the host (copy) and on the device; the
              streaming session
   models/    presets (copy)
+  utils/zbp  the .zbp recording loader and writers (copy)
+  viewer.py, viewer_xplane.py, viewer_web.py
+             B-mode images, A-scans, the 3D X-plane view and the browser
+             live view over a Beamformer (display_map runs on the frame's
+             device)
+  examples/  throughput, decode_sweep, point_scatterer, live_streaming:
+             ``python -m ogl_beamforming_tpu_torch.examples.<name>``
+  entry.py   the single-card entry point (``entry(device="cuda")``)
+  experiments/ the microbenchmark kernels' ports
   convert.py the JAX package's parameters and plan parameters -> this
              package's
 """

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..params.enums import AcquisitionKind, InterpolationMode, RCAOrientation
+from ..utils.device import resolve_device
 from .golden import DasParams
 
 PI_F32 = float(np.float32(np.pi))
@@ -501,3 +502,16 @@ def das(rf: torch.Tensor, dyn: dict, st: DasStatic):
     if rf.device.type != "cpu":
         raise ValueError(f"no DAS for device {rf.device}")
     return das_ref(rf, dyn, st)
+
+
+def das_from_params(rf, p: DasParams, device="cuda"):
+    """The golden ``das(rf, params)`` API on the port: ``make_static``,
+    ``make_dynamic`` and :func:`das` in one call.  A numpy ``rf`` goes to
+    ``device`` (the GPU unless told otherwise; raises without one); a
+    tensor stays where it is, so a CUDA tensor takes the kernel and a CPU
+    tensor the twin."""
+    if not isinstance(rf, torch.Tensor):
+        rf = torch.from_numpy(np.ascontiguousarray(rf)).to(
+            resolve_device(device))
+    st = make_static(p, iq=rf.is_complex())
+    return das(rf, make_dynamic(p, rf.device), st)

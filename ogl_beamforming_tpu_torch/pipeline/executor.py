@@ -42,7 +42,13 @@ from .stats import ComputeStats
 
 @dataclass
 class Frame:
-    """A beamformed frame (reference: BeamformerFrame)."""
+    """A beamformed frame (reference: BeamformerFrame).
+
+    A frame enters the backlog once its kernels are enqueued, before they
+    finish.  They run on the device's default stream, which is every
+    thread's current stream unless the thread sets another, so a reader in
+    any thread (the live view's HTTP handlers, ``viewer_web.LiveView``)
+    reads ``data`` after the frame's work without a device-wide wait."""
 
     data: torch.Tensor               # (nx, ny, nz) f32 or c64, on device
     id: int
@@ -402,11 +408,15 @@ class Beamformer:
         untraced warm-up, one frame runs under the profiler with an
         annotation at the end of each stage; a kernel belongs to the stage
         during which it was launched (its launch call shares the kernel's
-        correlation id in the trace).  Returns a list of
+        correlation id in the trace).  A trace that lacks the event of a
+        kernel the frame launched (its profile's ``lost``, roadmap C2) is
+        taken again, up to ``utils.profiling.TRACE_ATTEMPTS`` traces; the
+        last one counts, and each that lost one warned
+        (``LostKernelEvents``).  Returns a list of
         ``(ShaderKind, device_seconds)``; ``record=True`` also puts the
         times into the stats table as one frame.  On the CPU every time is
         0.0 (no kernel events)."""
-        from ..utils.profiling import device_time
+        from ..utils.profiling import TRACE_ATTEMPTS, device_time
         b = self._block(block)
         plan = self._ensure_plan(b)
         x = torch.from_numpy(np.ascontiguousarray(rf)).to(self.device)
@@ -421,7 +431,10 @@ class Beamformer:
 
             return plan(x, mark=mark)
 
-        prof = device_time(frame, x)
+        for attempt in range(TRACE_ATTEMPTS):
+            prof = device_time(frame, x, warmup=int(attempt == 0))
+            if not prof.lost:
+                break
         seconds = prof.split(marks) if prof.kernels else [0.0] * len(marks)
         times = [(sd.kind, t) for sd, t in zip(plan.descriptor.stages,
                                                 seconds)]

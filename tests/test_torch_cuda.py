@@ -1227,3 +1227,67 @@ def test_served_frames_equal_push_data_with_compute(dev):
         os.environ["OGL_BEAMFORMER_SHM_NAME"] = name
         srv.stop(timeout=30)
     assert not srv._thread.is_alive()
+
+
+# ---------------------------------------------------------------------------
+# Recorded acquisitions and display
+
+@pytest.mark.parametrize("iq", [False, True])
+@pytest.mark.parametrize("kind", ["FORCES", "RCA_TPW"])
+def test_das_from_params_on_the_card_equals_the_twin(dev, kind, iq):
+    """A CUDA tensor takes the kernel (one launch), a numpy array goes to
+    the device asked for; both against the twin of the same input."""
+    p = DasParams(
+        acquisition_kind=AcquisitionKind[kind],
+        acquisition_count=4 if kind == "FORCES" else 1, channel_count=16,
+        sample_count=512, sampling_frequency=20e6,
+        demodulation_frequency=5e6, speed_of_sound=1500.0,
+        time_offset=1e-7, f_number=0.8,
+        voxel_transform=das_transform_2d_xz([0, 1e-3], [15 * PITCH, 8e-3]),
+        xdc_element_pitch=np.array([PITCH, PITCH], np.float32),
+        output_points=(24, 32, 1),
+        interpolation_mode=InterpolationMode.Cubic)
+    rng = np.random.default_rng(14)
+    rf = rng.standard_normal((16, p.acquisition_count, 512)).astype(
+        np.float32)
+    if iq:
+        rf = (rf + 1j * rng.standard_normal(rf.shape)).astype(np.complex64)
+    before = sum(build.LAUNCHES.values())
+    out = das.das_from_params(torch.from_numpy(rf).to(dev), p)
+    assert sum(build.LAUNCHES.values()) == before + 1
+    twin = das.das_from_params(torch.from_numpy(rf), p)
+    assert out.is_cuda and twin.device.type == "cpu"
+    assert nrmse(twin.numpy(), out.cpu().numpy()) <= 1e-4
+    np.testing.assert_array_equal(
+        das.das_from_params(rf, p, device=dev).cpu().numpy(),
+        out.cpu().numpy())
+
+
+def test_viewer_on_a_card_frame_equals_the_cpu_frame(dev):
+    """``display_map`` runs on the frame's device: a frame on the card
+    gives the CPU frame's B-mode image and A-scan."""
+    from ogl_beamforming_tpu_torch import viewer
+    from ogl_beamforming_tpu_torch.pipeline.executor import Frame
+    rng = np.random.default_rng(3)
+    v = (rng.standard_normal((64, 128, 1))
+         + 1j * rng.standard_normal((64, 128, 1))).astype(np.complex64)
+    card = Frame(data=torch.from_numpy(v).to(dev), id=0)
+    host = Frame(data=torch.from_numpy(v), id=0)
+    np.testing.assert_allclose(viewer.bmode_image(card, db_cutoff=-40),
+                               viewer.bmode_image(host, db_cutoff=-40),
+                               atol=1e-6)
+    np.testing.assert_array_equal(viewer.a_scan(card, 17),
+                                  viewer.a_scan(host, 17))
+
+
+def test_entry_forward_on_the_card_equals_the_cpu_entry(dev):
+    from ogl_beamforming_tpu_torch import entry
+    forward, (rf,) = entry.entry()
+    assert rf.is_cuda
+    raw = np.random.default_rng(5).integers(-2048, 2048, tuple(rf.shape),
+                                            dtype=np.int16)
+    out = forward(torch.from_numpy(raw).to(dev))
+    cpu_forward, _ = entry.entry(device="cpu")
+    ref = cpu_forward(torch.from_numpy(raw))
+    assert out.is_cuda and out.shape == ref.shape
+    assert nrmse(ref.numpy(), out.cpu().numpy()) <= 1e-4

@@ -567,7 +567,15 @@ def test_port_imports_no_jax():
         "        'ogl_beamforming_tpu_torch.runtime.abi',\n"
         "        'ogl_beamforming_tpu_torch.runtime.server',\n"
         "        'ogl_beamforming_tpu_torch.runtime.hotreload',\n"
-        "        'ogl_beamforming_tpu_torch.params.codegen'} | {\n"
+        "        'ogl_beamforming_tpu_torch.params.codegen',\n"
+        "        'ogl_beamforming_tpu_torch.utils.zbp',\n"
+        "        'ogl_beamforming_tpu_torch.viewer',\n"
+        "        'ogl_beamforming_tpu_torch.viewer_xplane',\n"
+        "        'ogl_beamforming_tpu_torch.viewer_web',\n"
+        "        'ogl_beamforming_tpu_torch.entry'} | {\n"
+        "    'ogl_beamforming_tpu_torch.examples.' + n for n in (\n"
+        "        'throughput', 'decode_sweep', 'point_scatterer',\n"
+        "        'live_streaming')} | {\n"
         "    'ogl_beamforming_tpu_torch.experiments.' + n for n in (\n"
         "        'gather_micro', 'gather_micro2', 'gather_micro3',\n"
         "        'onehot_micro', 'onehot_micro2', 'probe_i8', 'probe_i8b')}\n"

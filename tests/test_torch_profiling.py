@@ -289,6 +289,53 @@ def test_profile_device_stages_cpu():
                                   before)
 
 
+def _stages_beamformer():
+    c, a, s, pitch = 8, 4, 256, 0.3e-3
+    p = Parameters(
+        sample_count=s, channel_count=c, acquisition_count=a,
+        sampling_frequency=20e6, demodulation_frequency=5e6,
+        speed_of_sound=1500.0, f_number=0.8,
+        acquisition_kind=AcquisitionKind.FORCES,
+        interpolation_mode=InterpolationMode.Linear,
+        das_voxel_transform=das_transform_2d_xz([0, 1e-3],
+                                                [(c - 1) * pitch, 8e-3]),
+        xdc_element_pitch=np.array([pitch, pitch], np.float32),
+        output_points=np.array([12, 16, 1, 0], np.int32))
+    bf = Beamformer(device="cpu")
+    bf.push_parameters(p)
+    bf.push_pipeline([ShaderKind.Decode, ShaderKind.DAS], DataKind.Int16)
+    return bf, np.zeros((c, a, s), np.int16)
+
+
+@pytest.mark.parametrize("lost_traces", [0, 1, 2, profiling.TRACE_ATTEMPTS])
+def test_profile_device_stages_retakes_a_trace_that_lost_a_kernel(
+        monkeypatch, lost_traces):
+    """A trace whose profile names a lost kernel (roadmap C2) is taken
+    again, up to TRACE_ATTEMPTS traces, the warm-up only before the first;
+    the last trace gives the stage times."""
+    bf, rf = _stages_beamformer()
+    calls = []
+
+    def fake_device_time(fn, *args, warmup=1):
+        calls.append(warmup)
+        fn(*args)
+        n = len(calls)
+        prof = DeviceProfile(module_seconds=n * 1e-3, op_seconds={})
+        prof.annotations = {"stage_end:0": 10.0, "stage_end:1": 20.0}
+        prof.kernels = [("decode_i8_kernel", 5.0, n * 1e-3),
+                        ("das_forces_kernel", 15.0, 2e-3)]
+        prof.lost = (["das_forces: 1 launched, 0 in the trace"]
+                     if n <= lost_traces else [])
+        return prof
+
+    monkeypatch.setattr(profiling, "device_time", fake_device_time)
+    times = bf.profile_device_stages(rf)
+    taken = min(lost_traces + 1, profiling.TRACE_ATTEMPTS)
+    assert calls == [1] + [0] * (taken - 1)
+    assert [t for _, t in times] == [pytest.approx(taken * 1e-3),
+                                     pytest.approx(2e-3)]
+
+
 def test_traced_ms_over_the_calls_whose_events_it_holds(monkeypatch):
     """``experiments.traced_ms`` with a kernel filter: the filtered kernels'
     time over the calls, or over the events the trace holds where it lost
