@@ -215,6 +215,26 @@ line:
               (1e-3); entry()'s forward with a point target, its peak
               checked.  The phase's launches go onto the kernel table's
               rows as ``phase10_launches``.
+ 11. tune    the launch knobs: the shipped H100 tables
+              (ogl_beamforming_tpu_torch/data/tuned_h100.json and
+              decode_tuned_h100.json) load and every knob in them is one
+              the kernels have; das_cuda.autotune_das with its default
+              candidates at full width on the Quickstart, paths A-E and
+              the throughput chain's DAS (pretune's configurations), each
+              candidate's output against the default knobs' on the same
+              input (bit for bit; the FORCES index table's pass, which
+              sums a voxel's pairs pass by pass, to NRMSE 1e-4; FORCES
+              frames a launch to 1e-6), a plan
+              built after tuning launching the installed knobs, its frame
+              against a plan's built before (bit for bit, or 1e-4 where
+              the installed knobs change the order); decode.autotune_decode
+              on the Quickstart's int16 frame, path B's complex frame and
+              256 ch x order 256 x 4096, every candidate bit-equal to the
+              default; save_tuned/load_tuned and the decode pair round
+              trip, and a HERCULES thread shape other than the plan's,
+              loaded from a file, launched by a plan built after
+              (build.VARIANT_LAUNCHES), its frame bit-equal.  Prints each
+              candidate's ms with the card's name and power limit.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -408,22 +428,29 @@ BUILD_FACTS: dict = {}   # ptxas usage and SASS loop counts (phase 2)
 def kernel_facts(st, dyn, frames: int = 1) -> str:
     """Registers, spills, resident warps and the inner loop's SASS count of
     the DAS kernel instantiation that runs ``st`` (``frames`` frames a
-    launch), with the FORCES index table's pass."""
-    from ogl_beamforming_tpu_torch.kernels import sass
+    launch, the launch tables' thread shape), with the FORCES index table's
+    pass."""
+    from ogl_beamforming_tpu_torch.kernels import build, sass
     from ogl_beamforming_tpu_torch.ops import das_cuda
     mode = das_cuda._MODE[st.interpolation_mode]
+    tables = dyn.get("launch") or das_cuda.launch_tables(st, dyn)
+    thread = tables.get("thread")
+    if thread is not None and frames > 1:   # the only four-frame shape
+        thread = build.THREAD_SHAPES[st.family][0]
     tag = (f"das_{st.family}_kernelILi{mode}ELb{int(st.iq)}"
-           f"ELb{int(st.coherency_weighting)}ELi{frames}E")
+           f"ELb{int(st.coherency_weighting)}ELi{frames}E"
+           + ("" if thread is None else "Li{}ELi{}ELb{}E".format(*thread)))
     regs = [v for k, v in BUILD_FACTS["usage"].items() if tag in k]
     check(len(regs) == 1, f"no single ptxas entry for {tag}")
-    tables = dyn.get("launch") or das_cuda.launch_tables(st, dyn)
     n_tx = (tables["tx_pos"].shape[0] if "tx_pos" in tables
             else st.acquisition_count)
     chunk = tables.get("tx_pass", das_cuda.WIDE_PASS)
-    blocks = das_cuda.blocks_per_sm(st, n_tx, chunk, frames)
+    blocks = das_cuda.blocks_per_sm(st, n_tx, chunk, frames, thread=thread)
     check(blocks > 0, f"{tag}: no block fits on an SM")
     key = (f"{sass.MODES[mode]} {'iq' if st.iq else 'real'}"
            f"{' coh' if st.coherency_weighting else ''} fb{frames}")
+    if thread is not None and thread != build.THREAD_SHAPES[st.family][0]:
+        key += " t{}.{}.{}".format(*thread)
     loop = BUILD_FACTS["loops"][st.family].get(key)
     per_pair = f"{loop['per_pair']:.1f}" if loop else "not found"
     table = (f", {chunk} a pass of the index table" if st.family == "forces"
@@ -3291,6 +3318,217 @@ def phase_zbp(dev, smi_line) -> dict:
     return counts
 
 
+# Phase 11: autotune.  The shipped H100 tables
+# (ogl_beamforming_tpu_torch/data/*_h100.json) and autotune_das /
+# autotune_decode with their default candidates at full width on the
+# Quickstart, paths A-E and the throughput chain's DAS (pretune's
+# configurations, the keys of the shipped table), and the decode of the
+# Quickstart, path B and order 256.
+TUNE_PATHS = ("quickstart", "path_a", "path_b", "path_c", "uforces_3d",
+              "path_e_batch4", "throughput_chain")
+TUNE_DECODE = (("quickstart int16", (128, 128, 4096), torch.int16),
+               ("path B complex", (128, 128, 2048), torch.complex64),
+               ("T = 256 int16", (256, 256, 4096), torch.int16))
+
+
+def knob_bound(family: str, knobs: dict) -> float:
+    """The NRMSE that ``knobs``' output is held to against the default
+    knobs': 0 (bit for bit) where they keep every voxel's order of
+    accumulation; 1e-6 for FORCES frames a launch (as phase 3); the twin
+    bound, 1e-4, for the FORCES index table's pass (a voxel's pairs are
+    summed pass by pass)."""
+    if "tx_pass" in knobs:
+        return 1e-4
+    return 1e-6 if family == "forces" and "fb" in knobs else 0.0
+
+
+def raw_input(plan, seed: int) -> torch.Tensor:
+    """A canonical raw frame (B,) C x A x S_wire of ``plan``'s data kind,
+    drawn on the card from ``seed``."""
+    from ogl_beamforming_tpu_torch import pretune
+    d = plan.descriptor
+    lead = (d.frame_batch,) if d.frame_batch > 1 else ()
+    shape = lead + (d.channel_count, d.acquisition_count,
+                    d.sample_count * d.data_kind.element_count)
+    dtype = (torch.int16 if d.data_kind.name.startswith("Int16")
+             else torch.float32)
+    return pretune.device_input(shape, dtype, seed)
+
+
+def held(label, out, ref, bound: float) -> str:
+    """``out`` against ``ref`` (tuples of outputs): bit-equal where
+    ``bound`` is 0, else NRMSE ``bound``; returns what held."""
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    if bound == 0:
+        check(all(torch.equal(o, r) for o, r in zip(outs, refs)),
+              f"{label}: not bit-equal to the default knobs")
+        return "bit-equal"
+    err = max(nrmse(r.cpu().numpy(), o.cpu().numpy())
+              for o, r in zip(outs, refs))
+    check(err <= bound, f"{label}: NRMSE {err:.3e} > {bound:g}")
+    return f"NRMSE {err:.2e}"
+
+
+def tune_das_path(name, setup, seed, smi_line) -> None:
+    """autotune_das on one path: every candidate's output against the
+    default knobs', a plan built after tuning launching the installed
+    knobs with its frame against the frame of a plan built before."""
+    from ogl_beamforming_tpu_torch import pretune
+    from ogl_beamforming_tpu_torch.ops import das_cuda
+    from ogl_beamforming_tpu_torch.pipeline.plan import compose_stages
+    plan0, st, dyn = setup()
+    key = das_cuda._tune_key(st)
+    raw = raw_input(plan0, seed)
+    frame0 = compose_stages(plan0.descriptor, raw, plan0.dyn)
+    rf = pretune.das_input(st, seed)
+    t0 = time.perf_counter()
+    best, results = das_cuda.autotune_das(rf, dyn, st, iters=3, passes=2)
+    tune_s = time.perf_counter() - t0
+    installed = das_cuda.TUNED[key]
+    check(installed == best, f"tune {name}: TUNED holds {installed}, "
+          f"autotune_das returned {best}")
+    das_cuda.TUNED[key] = {}
+    ref = das_cuda.das_cuda(rf, dict(dyn, launch=das_cuda.launch_tables(
+        st, dyn)), st)
+    lines = []
+    for knobs in das_cuda._default_candidates(st):
+        t = results[repr(knobs)]
+        check(t is not None, f"tune {name}: candidate {knobs} failed")
+        das_cuda.TUNED[key] = knobs
+        out = das_cuda.das_cuda(rf, dict(dyn, launch=das_cuda.launch_tables(
+            st, dyn)), st)
+        lines.append(f"{knobs} {t * 1e3:.4f} ms " + held(
+            f"tune {name} {knobs}", out, ref, knob_bound(st.family, knobs)))
+    das_cuda.TUNED[key] = installed
+    plan1, _, _ = setup()
+    tables = plan1.dyn["das"]["launch"]
+    for knob, value in best.items():
+        check(tables[knob] == (tuple(value) if knob == "thread" else value),
+              f"tune {name}: the plan built after tuning has {knob} "
+              f"{tables[knob]}, installed {value}")
+    frame1 = compose_stages(plan1.descriptor, raw, plan1.dyn)
+    kept = held(f"tune {name} frame after tuning", frame1, frame0,
+                knob_bound(st.family, best))
+    print(f"[tune] {name} {key}: autotune_das {tune_s:.1f} s, best {best}; "
+          + "; ".join(lines) + f"; the plan after tuning launches {best}, "
+          f"its frame vs the frame before: {kept}; {smi_line}")
+
+
+def tune_decode(label, shape, dtype, seed, smi_line) -> None:
+    """autotune_decode on one shape, every candidate bit-equal to the
+    default launch."""
+    from ogl_beamforming_tpu_torch import pretune
+    from ogl_beamforming_tpu_torch.ops import decode
+    rf = pretune.device_input(shape, dtype, seed)
+    h = decode.hadamard_matrix(shape[1], rf.device)
+    key = tuple(shape[:-1]) + (shape[-1] * (2 if rf.is_complex() else 1),)
+    t0 = time.perf_counter()
+    best, results = decode.autotune_decode(rf, h, iters=20, warmup=2,
+                                           passes=2)
+    tune_s = time.perf_counter() - t0
+    installed = decode.DECODE_TUNED[key]
+    decode.DECODE_TUNED[key] = {}
+    ref = decode.decode_hadamard(rf, h)
+    lines = []
+    for knobs in decode.decode_candidates(rf):
+        t = results[repr(knobs)]
+        check(t is not None, f"tune decode {label}: candidate {knobs} failed")
+        decode.DECODE_TUNED[key] = knobs
+        lines.append(f"{knobs} {t * 1e3:.4f} ms " + held(
+            f"tune decode {label} {knobs}", decode.decode_hadamard(rf, h),
+            ref, 0.0))
+    decode.DECODE_TUNED[key] = installed
+    print(f"[tune] decode {label} {tuple(shape)}: autotune_decode "
+          f"{tune_s:.1f} s, best {best} (entry {installed}); "
+          + "; ".join(lines) + f"; {smi_line}")
+
+
+def tables_round_trip(tmp, smi_line) -> None:
+    """save_tuned / load_tuned and the decode pair round trip; a HERCULES
+    thread shape other than the plan's, loaded from a file, launches in a
+    plan built after, its frame bit-equal to a plan's built before."""
+    import pathlib
+
+    from ogl_beamforming_tpu_torch import pretune
+    from ogl_beamforming_tpu_torch.kernels import build
+    from ogl_beamforming_tpu_torch.ops import das_cuda, decode
+    from ogl_beamforming_tpu_torch.pipeline.plan import compose_stages
+    tmp = pathlib.Path(tmp)
+    for save, load, table in ((das_cuda.save_tuned, das_cuda.load_tuned,
+                               das_cuda.TUNED),
+                              (decode.save_decode_tuned,
+                               decode.load_decode_tuned, decode.DECODE_TUNED)):
+        before = dict(table)
+        save(tmp / "table.json")
+        table.clear()
+        load(tmp / "table.json")
+        check(table == before, f"{save.__name__}/{load.__name__}: the table "
+              "did not come back as it was")
+    setup = dict((n, b) for n, b, _ in pretune.das_cases())["path_c"]
+    plan0, st, _ = setup()
+    raw = raw_input(plan0, 11)
+    frame0 = compose_stages(plan0.descriptor, raw, plan0.dyn)
+    key = das_cuda._tune_key(st)
+    keep = das_cuda.TUNED.get(key)
+    shape = [2, 4, 0] if plan0.dyn["das"]["launch"]["thread"] != (2, 4, 0) \
+        else list(build.THREAD_SHAPES["hercules"][0])
+    das_cuda.TUNED[key] = {"thread": shape}
+    das_cuda.save_tuned(tmp / "shape.json")
+    das_cuda.TUNED.pop(key)
+    das_cuda.load_tuned(tmp / "shape.json")
+    plan1, _, _ = setup()
+    launched = "das_hercules thread {}.{}.{}".format(*shape)
+    n = build.VARIANT_LAUNCHES[launched]
+    frame1 = compose_stages(plan1.descriptor, raw, plan1.dyn)
+    torch.cuda.synchronize()
+    check(plan1.dyn["das"]["launch"]["thread"] == tuple(shape)
+          and build.VARIANT_LAUNCHES[launched] == n + 1,
+          f"tune: a plan after load_tuned did not launch thread shape "
+          f"{shape}")
+    check(torch.equal(frame1, frame0), "tune: path C's frame in thread shape "
+          f"{shape} differs from the frame before")
+    if keep is None:
+        das_cuda.TUNED.pop(key)
+    else:
+        das_cuda.TUNED[key] = keep
+    print(f"[tune] save_tuned/load_tuned and the decode pair round trip; "
+          f"path C's plan after load_tuned of thread {shape} launches that "
+          f"shape once a frame, its frame bit-equal to the frame before; "
+          f"{smi_line}")
+
+
+def phase_tune(dev, smi_line) -> None:
+    """Phase 11."""
+    import tempfile
+
+    from ogl_beamforming_tpu_torch import pretune
+    from ogl_beamforming_tpu_torch.ops import das_cuda, decode
+    t0 = time.perf_counter()
+    das_cuda._load_shipped_tuned()
+    decode._load_shipped_decode_tuned()
+    for path, rows, table in (
+            (das_cuda.TUNED_PATH, das_cuda._table_rows, das_cuda.TUNED),
+            (decode.DECODE_TUNED_PATH, decode._decode_rows,
+             decode.DECODE_TUNED)):
+        check(path.exists(), f"tune: no shipped table {path.name}")
+        entries = rows(path)         # raises on a knob the kernels lack
+        check(entries and all(table.get(k) == v for k, v in entries),
+              f"tune: {path.name} is empty or not loaded")
+        print(f"[tune] {path.name}: {len(entries)} entries, every knob "
+              f"valid, loaded: " + "; ".join(f"{k} {v}" for k, v in entries))
+    setups = {n: b for n, b, _ in pretune.das_cases()}
+    for i, name in enumerate(TUNE_PATHS):
+        tune_das_path(name, setups[name], 200 + i, smi_line)
+        torch.cuda.empty_cache()
+    for i, (label, shape, dtype) in enumerate(TUNE_DECODE):
+        tune_decode(label, shape, dtype, 300 + i, smi_line)
+    with tempfile.TemporaryDirectory(prefix="tune_smoke_") as tmp:
+        tables_round_trip(tmp, smi_line)
+    print(f"[tune] phase 11 took {time.perf_counter() - t0:.1f} s; "
+          f"{smi_line}")
+
+
 def print_lost(phases: str, caught: list) -> None:
     """The traces of ``phases`` that lack a kernel event their call launched
     (utils/profiling.device_time warns of each, naming the kernel and the
@@ -3346,6 +3584,7 @@ def main() -> None:
     for row in rows:
         check(row["launches"] > 0, f"{row['name']} never launched on its path")
         row["phase10_launches"] = zbp_launches.get(row["name"], 0)
+    phase_tune(dev, smi_line)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -202,6 +202,12 @@ constexpr int kHerculesLanes = 4;
 constexpr bool kHerculesRunsFirst = false;
 constexpr int kRcaLanes = 1;
 constexpr bool kRcaRunsFirst = true;
+// Those are the defaults, the kernels' template arguments VPT, LANES and
+// RUNS_FIRST.  A launch may take another thread shape of a small set,
+// instantiated for single-frame launches only (kernels/build.py
+// THREAD_SHAPES, chosen per configuration by autotune_das): a voxel's pairs
+// are summed in the same order whatever the shape, so its output is
+// bit-equal to the default's.
 // 2 pi split in three float32 parts for the exact phase reduction (Cody and
 // Waite): hi is float32(2 pi), mid and lo the next bits.
 // ops/das_cuda.py::TWO_PI_SPLIT holds the same values.
@@ -740,10 +746,11 @@ __global__ void __launch_bounds__(kBlock) das_forces_kernel(const Args args) {
   acc.store(args, v);
 }
 
-template <int MODE, bool IQ, bool COH, int FB>
+// In thread shape (VPT, LANES, RUNS_FIRST): VPT voxels a thread, warp tiles
+// of LANES threads a run (thread_run).
+template <int MODE, bool IQ, bool COH, int FB, int VPT, int LANES, bool RUNS_FIRST>
 __global__ void __launch_bounds__(kBlock) das_hercules_kernel(const Args args) {
   using T = typename Sample<IQ>::type;
-  constexpr int VPT = kHerculesVoxels;
   const T* __restrict__ rf = static_cast<const T*>(args.rf);
   const float* __restrict__ sc = args.sc;
   const int channels = args.channels, rf_rows = args.rf_rows, S = args.S;
@@ -762,7 +769,7 @@ __global__ void __launch_bounds__(kBlock) das_hercules_kernel(const Args args) {
   __syncthreads();
 
   Run run;
-  if (!thread_run<VPT, kHerculesLanes, kHerculesRunsFirst>(args, run)) return;
+  if (!thread_run<VPT, LANES, RUNS_FIRST>(args, run)) return;
   const size_t frame = (size_t)channels * rf_rows * S;
 
   const float fs = sc[kFs], sos = sc[kSos], t0 = sc[kT0], fnum = sc[kFnum];
@@ -845,10 +852,10 @@ __global__ void __launch_bounds__(kBlock) das_hercules_kernel(const Args args) {
     if (i < run.count) acc[i].store(args, run.first + i * run.step);
 }
 
-template <int MODE, bool IQ, bool COH, int FB>
+// In thread shape (VPT, LANES, RUNS_FIRST), as das_hercules_kernel.
+template <int MODE, bool IQ, bool COH, int FB, int VPT, int LANES, bool RUNS_FIRST>
 __global__ void __launch_bounds__(kBlock) das_rca_kernel(const Args args) {
   using T = typename Sample<IQ>::type;
-  constexpr int VPT = kRcaVoxels;
   const T* __restrict__ rf = static_cast<const T*>(args.rf);
   const float* __restrict__ sc = args.sc;
   const int channels = args.channels, S = args.S, A = args.n_tx;
@@ -858,7 +865,7 @@ __global__ void __launch_bounds__(kBlock) das_rca_kernel(const Args args) {
   __syncthreads();
 
   Run run;
-  if (!thread_run<VPT, kRcaLanes, kRcaRunsFirst>(args, run)) return;
+  if (!thread_run<VPT, LANES, RUNS_FIRST>(args, run)) return;
   const size_t frame = (size_t)channels * args.rf_rows * S;
   const size_t row = (size_t)args.rf_rows * S;
 
@@ -964,8 +971,52 @@ bool valid_run(const Args& args) {
   return args.run >= 1 && voxels % args.run == 0;
 }
 
+// A thread shape of the HERCULES and RCA kernels as one code: `voxels`
+// voxels a thread, `lanes` threads of a run in a warp, runs first or not.
+constexpr int shape_code(int voxels, int lanes, bool runs_first) {
+  return 100 * voxels + 2 * lanes + (runs_first ? 1 : 0);
+}
+
+// A HERCULES or RCA launch in thread shape (VPT, LANES, RUNS_FIRST): whole
+// warps of thread_run's tiles, `smem` bytes of tables a block.
+template <int FAMILY, int MODE, bool IQ, bool COH, int FB, int VPT, int LANES, bool RUNS_FIRST>
+int launch_runs(const Args& args, size_t smem, cudaStream_t stream, int* occupancy) {
+  const long long threads = occupancy ? 0 : run_threads<VPT, LANES>(args);
+  if constexpr (FAMILY == kHercules)
+    return launch_threads(das_hercules_kernel<MODE, IQ, COH, FB, VPT, LANES, RUNS_FIRST>, args,
+                          threads, smem, stream, occupancy);
+  else
+    return launch_threads(das_rca_kernel<MODE, IQ, COH, FB, VPT, LANES, RUNS_FIRST>, args,
+                          threads, smem, stream, occupancy);
+}
+
+// The HERCULES or RCA kernel in thread shape `shape` (shape_code): the
+// family's default, or for one frame a launch another of kernels/build.py's
+// THREAD_SHAPES.
 template <int FAMILY, int MODE, bool IQ, bool COH, int FB>
-int launch(const Args& args, cudaStream_t stream, int* occupancy) {
+int launch_shape(const Args& args, int shape, size_t smem, cudaStream_t s, int* occ) {
+  if constexpr (FAMILY == kHercules) {
+    if (shape == shape_code(kHerculesVoxels, kHerculesLanes, kHerculesRunsFirst))
+      return launch_runs<FAMILY, MODE, IQ, COH, FB, kHerculesVoxels, kHerculesLanes,
+                         kHerculesRunsFirst>(args, smem, s, occ);
+    if constexpr (FB == 1) {
+      if (shape == shape_code(2, 4, false))
+        return launch_runs<FAMILY, MODE, IQ, COH, FB, 2, 4, false>(args, smem, s, occ);
+    }
+  } else {
+    if (shape == shape_code(kRcaVoxels, kRcaLanes, kRcaRunsFirst))
+      return launch_runs<FAMILY, MODE, IQ, COH, FB, kRcaVoxels, kRcaLanes, kRcaRunsFirst>(
+          args, smem, s, occ);
+    if constexpr (FB == 1) {
+      if (shape == shape_code(1, 32, true))
+        return launch_runs<FAMILY, MODE, IQ, COH, FB, 1, 32, true>(args, smem, s, occ);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int FAMILY, int MODE, bool IQ, bool COH, int FB>
+int launch(const Args& args, int shape, cudaStream_t stream, int* occupancy) {
   const size_t tx_table = (size_t)args.n_tx * (2 * sizeof(float) + sizeof(int));
   const long long voxels = (long long)args.nx * args.ny * args.nz;
   if constexpr (FAMILY == kForces) {
@@ -979,53 +1030,50 @@ int launch(const Args& args, cudaStream_t stream, int* occupancy) {
     if (occupancy == nullptr &&
         (!valid_run(args) || (long long)args.rf_rows * args.S > INT_MAX))
       return (int)cudaErrorInvalidValue;
-    return launch_threads(das_hercules_kernel<MODE, IQ, COH, FB>, args,
-                          occupancy ? 0 : run_threads<kHerculesVoxels, kHerculesLanes>(args),
-                          tx_table,
-                          stream, occupancy);
+    return launch_shape<FAMILY, MODE, IQ, COH, FB>(args, shape, tx_table, stream, occupancy);
   } else {
     if (occupancy == nullptr && !valid_run(args)) return (int)cudaErrorInvalidValue;
-    return launch_threads(das_rca_kernel<MODE, IQ, COH, FB>, args,
-                          occupancy ? 0 : run_threads<kRcaVoxels, kRcaLanes>(args),
-                          (size_t)args.n_tx * kRcaWidth * sizeof(float), stream, occupancy);
+    return launch_shape<FAMILY, MODE, IQ, COH, FB>(
+        args, shape, (size_t)args.n_tx * kRcaWidth * sizeof(float), stream, occupancy);
   }
 }
 
 template <int FAMILY, int MODE, bool IQ, bool COH>
-int launch_fb(const Args& args, int fb, cudaStream_t s, int* occ) {
+int launch_fb(const Args& args, int fb, int shape, cudaStream_t s, int* occ) {
   switch (fb) {
-    case 1: return launch<FAMILY, MODE, IQ, COH, 1>(args, s, occ);
-    case 4: return launch<FAMILY, MODE, IQ, COH, 4>(args, s, occ);
+    case 1: return launch<FAMILY, MODE, IQ, COH, 1>(args, shape, s, occ);
+    case 4: return launch<FAMILY, MODE, IQ, COH, 4>(args, shape, s, occ);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <int FAMILY, int MODE>
-int launch_mode(const Args& args, bool iq, bool coh, int fb, cudaStream_t s, int* occ) {
+int launch_mode(const Args& args, bool iq, bool coh, int fb, int shape, cudaStream_t s,
+                int* occ) {
   if (iq)
-    return coh ? launch_fb<FAMILY, MODE, true, true>(args, fb, s, occ)
-               : launch_fb<FAMILY, MODE, true, false>(args, fb, s, occ);
-  return coh ? launch_fb<FAMILY, MODE, false, true>(args, fb, s, occ)
-             : launch_fb<FAMILY, MODE, false, false>(args, fb, s, occ);
+    return coh ? launch_fb<FAMILY, MODE, true, true>(args, fb, shape, s, occ)
+               : launch_fb<FAMILY, MODE, true, false>(args, fb, shape, s, occ);
+  return coh ? launch_fb<FAMILY, MODE, false, true>(args, fb, shape, s, occ)
+             : launch_fb<FAMILY, MODE, false, false>(args, fb, shape, s, occ);
 }
 
 template <int FAMILY>
-int launch_family(const Args& args, int mode, bool iq, bool coh, int fb, cudaStream_t s,
-                  int* occ) {
+int launch_family(const Args& args, int mode, bool iq, bool coh, int fb, int shape,
+                  cudaStream_t s, int* occ) {
   switch (mode) {
-    case kNearest: return launch_mode<FAMILY, kNearest>(args, iq, coh, fb, s, occ);
-    case kLinear: return launch_mode<FAMILY, kLinear>(args, iq, coh, fb, s, occ);
-    case kCubic: return launch_mode<FAMILY, kCubic>(args, iq, coh, fb, s, occ);
+    case kNearest: return launch_mode<FAMILY, kNearest>(args, iq, coh, fb, shape, s, occ);
+    case kLinear: return launch_mode<FAMILY, kLinear>(args, iq, coh, fb, shape, s, occ);
+    case kCubic: return launch_mode<FAMILY, kCubic>(args, iq, coh, fb, shape, s, occ);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-int dispatch(int family, const Args& args, int mode, bool iq, bool coh, int fb,
+int dispatch(int family, const Args& args, int mode, bool iq, bool coh, int fb, int shape,
              cudaStream_t s, int* occ) {
   switch (family) {
-    case kForces: return launch_family<kForces>(args, mode, iq, coh, fb, s, occ);
-    case kHercules: return launch_family<kHercules>(args, mode, iq, coh, fb, s, occ);
-    case kRca: return launch_family<kRca>(args, mode, iq, coh, fb, s, occ);
+    case kForces: return launch_family<kForces>(args, mode, iq, coh, fb, shape, s, occ);
+    case kHercules: return launch_family<kHercules>(args, mode, iq, coh, fb, shape, s, occ);
+    case kRca: return launch_family<kRca>(args, mode, iq, coh, fb, shape, s, occ);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1035,14 +1083,17 @@ int dispatch(int family, const Args& args, int mode, bool iq, bool coh, int fb,
 // One DAS launch of `fb` frames (1 or 4) of `family` (Family above);
 // `tx_chunk` is the transmits per pass of the FORCES index table, `run` the
 // HERCULES and RCA kernels' run of equal lateral coordinates and `tx_walk`
-// the HERCULES kernel's walk (Args).
+// the HERCULES kernel's walk (Args); `voxels`, `lanes` and `runs_first` the
+// HERCULES or RCA thread shape (launch_shape; FORCES
+// ignores them).
 extern "C" int das_launch(int family, const void* rf, const void* sc,
                           const void* tab, const void* tx_pos,
                           const void* tx_weight, const void* tx_row, void* out,
                           void* inco, int channels, int channel_count,
                           int rf_rows, int S, int n_tx, int nx, int ny, int nz,
                           int gnx, int gny, int gnz, int mode, int iq, int coh,
-                          int fb, int tx_chunk, int run, int tx_walk, void* stream) {
+                          int fb, int tx_chunk, int run, int tx_walk, int voxels,
+                          int lanes, int runs_first, void* stream) {
   const Args args{rf, static_cast<const float*>(sc),
                   static_cast<const float*>(tab),
                   static_cast<const float*>(tx_pos),
@@ -1050,17 +1101,20 @@ extern "C" int das_launch(int family, const void* rf, const void* sc,
                   static_cast<const int*>(tx_row), out,
                   static_cast<float*>(inco), channels, channel_count, rf_rows,
                   S, n_tx, tx_chunk, nx, ny, nz, gnx, gny, gnz, run, tx_walk};
-  return dispatch(family, args, mode, iq, coh, fb, static_cast<cudaStream_t>(stream),
-                  nullptr);
+  return dispatch(family, args, mode, iq, coh, fb, shape_code(voxels, lanes, runs_first != 0),
+                  static_cast<cudaStream_t>(stream), nullptr);
 }
 
-// The blocks of one SM that the kernel of (family, mode, iq, coh, fb) holds
-// at once with `n_tx` transmits (or acquisitions) and, for FORCES, passes of
-// `tx_chunk` transmits, into *blocks.
+// The blocks of one SM that the kernel of (family, mode, iq, coh, fb) in the
+// thread shape (voxels, lanes, runs_first) holds at once with `n_tx`
+// transmits (or acquisitions) and, for FORCES, passes of `tx_chunk`
+// transmits, into *blocks.
 extern "C" int das_occupancy(int family, int mode, int iq, int coh, int fb,
-                             int n_tx, int tx_chunk, void* blocks) {
+                             int n_tx, int tx_chunk, int voxels, int lanes,
+                             int runs_first, void* blocks) {
   Args args{};
   args.n_tx = n_tx;
   args.tx_chunk = tx_chunk;
-  return dispatch(family, args, mode, iq, coh, fb, nullptr, static_cast<int*>(blocks));
+  return dispatch(family, args, mode, iq, coh, fb, shape_code(voxels, lanes, runs_first != 0),
+                  nullptr, static_cast<int*>(blocks));
 }

@@ -69,6 +69,16 @@ constexpr int kRowBytes = kTileS * 2 + 16;  // padded 16-bit tile row
 constexpr int kMaxOrder = 256;
 
 constexpr int kF32Rows = 128;          // float32 kernel: output rows a block owns
+// The largest dynamic shared memory a block of the H100 takes (opt-in): a
+// knob's instantiation that needs more is not built.
+constexpr size_t kMaxSmem = 232448;
+
+// Launch knobs of the int16 kernel (ops/decode.py DECODE_TUNED, chosen per
+// shape by autotune_decode), each only a schedule: its tile of samples
+// (kTileS by default; 8 of them a warp across the tile) and its warps
+// across H's m-tiles (1 by default), as decode_i8_tile_kernel.  Every
+// output is the same sum in the same order whatever the knobs, so they are
+// bit-equal to the defaults.
 
 // The int16 kernel: the int8 skeleton (i8_mma.cuh) with the decode's body,
 // 8 warps across a 64-sample tile, all of H's rows in every block.
@@ -83,6 +93,16 @@ decode_i8_kernel(const int16_t* __restrict__ rf, const int8_t* __restrict__ h,
   static_assert(DecodeI8<KSTEPS>::kThreads == kThreads &&
                 DecodeI8<KSTEPS>::kCols == kTileS, "the decode's tile");
   i8_tiles<KSTEPS, kI8Decode, 8, 1, 0>(rf, h, out, C, A, S, scale, vec_in, vec_out);
+}
+
+// The int16 kernel with WN warps across a tile of 8 WN samples and WM
+// warps across H's m-tiles.
+template <int KSTEPS, int WN, int WM>
+__global__ void __launch_bounds__(32 * WN * WM)
+decode_i8_tile_kernel(const int16_t* __restrict__ rf, const int8_t* __restrict__ h,
+                      void* __restrict__ out, int C, int A, int S, float scale,
+                      bool vec_in, bool vec_out) {
+  i8_tiles<KSTEPS, kI8Decode, WN, WM, 0>(rf, h, out, C, A, S, scale, vec_in, vec_out);
 }
 
 // d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate.
@@ -255,6 +275,46 @@ int launch_i8(const int16_t* rf, const int8_t* h, float* out, int C, int A,
                                            C, A, S, scale, stream);
 }
 
+template <int KSTEPS, int WN, int WM>
+int launch_i8_tile(const int16_t* rf, const int8_t* h, float* out, int C, int A, int S,
+                   float scale, cudaStream_t stream) {
+  using G = I8Tiles<KSTEPS, kI8Decode, WN, WM, 0>;
+  if constexpr (G::kSmem > kMaxSmem) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    static std::atomic<int> cache[kMaxDevices];
+    return launch_i8_tiles<G>(decode_i8_tile_kernel<KSTEPS, WN, WM>, cache, rf, h, out, C, A,
+                              S, scale, stream);
+  }
+}
+
+// f(WN, WM) as std::integral_constants for the int16 kernel's tile of
+// `tile_s` samples (8 WN) and `row_warps` (WM) warps across H's m-tiles:
+// the default (kTileS, 1), (128, 1) or (64, 2) (ops/decode.py I8_TILES).
+template <typename F>
+int by_i8_tile(int tile_s, int row_warps, F f) {
+  using std::integral_constant;
+  switch (tile_s * 4 + row_warps) {
+    case kTileS * 4 + 1:
+      return f(integral_constant<int, kTileS / 8>(), integral_constant<int, 1>());
+    case 128 * 4 + 1: return f(integral_constant<int, 16>(), integral_constant<int, 1>());
+    case 64 * 4 + 2: return f(integral_constant<int, 8>(), integral_constant<int, 2>());
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int KSTEPS>
+int launch_i8_knobs(const int16_t* rf, const int8_t* h, float* out, int C, int A, int S,
+                    float scale, int tile_s, int row_warps, cudaStream_t stream) {
+  return by_i8_tile(tile_s, row_warps, [&](auto wn, auto wm) {
+    constexpr int WN = decltype(wn)::value, WM = decltype(wm)::value;
+    if constexpr (WN * 8 == kTileS && WM == 1)
+      return launch_i8<KSTEPS>(rf, h, out, C, A, S, scale, stream);
+    else
+      return launch_i8_tile<KSTEPS, WN, WM>(rf, h, out, C, A, S, scale, stream);
+  });
+}
+
 template <int KSTEPS>
 int launch_f32(const float* rf, const int8_t* h, float* out, int C, int A, int S,
                float scale, cudaStream_t stream) {
@@ -282,14 +342,16 @@ bool valid(int C, int A, int S) {
 }  // namespace
 
 // int16 rf (C, A, S), int8 h (A, A) with entries +-1, float32 out (C, A, S);
-// 0 < A <= 256.
+// 0 < A <= 256; the tile knobs of launch_i8_knobs.
 extern "C" int decode_int16(const void* rf, const void* h, void* out, int C,
-                            int A, int S, float scale, void* stream) {
+                            int A, int S, float scale, int tile_s, int row_warps,
+                            void* stream) {
   if (!valid(C, A, S)) return (int)cudaErrorInvalidValue;
   return by_steps<8>(A, [&](auto k) {
-    return launch_i8<decltype(k)::value>(
+    return launch_i8_knobs<decltype(k)::value>(
         static_cast<const int16_t*>(rf), static_cast<const int8_t*>(h),
-        static_cast<float*>(out), C, A, S, scale, static_cast<cudaStream_t>(stream));
+        static_cast<float*>(out), C, A, S, scale, tile_s, row_warps,
+        static_cast<cudaStream_t>(stream));
   });
 }
 
@@ -302,5 +364,21 @@ extern "C" int decode_f32(const void* rf, const void* h, void* out, int C,
     return launch_f32<decltype(k)::value>(
         static_cast<const float*>(rf), static_cast<const int8_t*>(h),
         static_cast<float*>(out), C, A, S, scale, static_cast<cudaStream_t>(stream));
+  });
+}
+
+// Whether the int16 kernel's knobs (tile_s, row_warps) have a kernel for
+// order A that fits in kMaxSmem, into *fits (0 or 1).
+extern "C" int decode_fits(int A, int tile_s, int row_warps, void* fits) {
+  if (A <= 0 || A > kMaxOrder) return (int)cudaErrorInvalidValue;
+  return by_steps<8>(A, [&](auto k) {
+    size_t smem = 0;
+    by_i8_tile(tile_s, row_warps, [&](auto wn, auto wm) {
+      smem = I8Tiles<decltype(k)::value, kI8Decode, decltype(wn)::value,
+                     decltype(wm)::value, 0>::kSmem;
+      return 0;
+    });
+    *static_cast<int*>(fits) = smem > 0 && smem <= kMaxSmem;
+    return 0;
   });
 }

@@ -46,19 +46,29 @@ KERNEL_LAUNCHES: collections.Counter = collections.Counter()
 piece of it, such as ``das_forces_kernel``), as each launch site gives it
 to :func:`count_launch`."""
 
+VARIANT_LAUNCHES: collections.Counter = collections.Counter()
+"""The launches of a kernel of one name that takes a variant chosen at
+launch, by ``"<LAUNCHES name> <variant>"``: the HERCULES and RCA kernels'
+thread shape (``das_hercules thread 2.4.0``), as :func:`count_launch` is
+given it."""
+
 
 _LAUNCH_LOCK = threading.Lock()
 
 
-def count_launch(name: str, kernel: str | None = None) -> None:
-    """Add one to ``LAUNCHES[name]`` and, where the launch site names the
-    kernel as a trace shows it, to ``KERNEL_LAUNCHES[kernel]``, under a
-    lock: a streaming session's worker thread launches kernels beside the
-    caller's thread."""
+def count_launch(name: str, kernel: str | None = None,
+                 variant: str | None = None) -> None:
+    """Add one to ``LAUNCHES[name]``, where the launch site names the
+    kernel as a trace shows it to ``KERNEL_LAUNCHES[kernel]``, and where it
+    names the variant it launched to ``VARIANT_LAUNCHES``, under a lock: a
+    streaming session's worker thread launches kernels beside the caller's
+    thread."""
     with _LAUNCH_LOCK:
         LAUNCHES[name] += 1
         if kernel is not None:
             KERNEL_LAUNCHES[kernel] += 1
+        if variant is not None:
+            VARIANT_LAUNCHES[f"{name} {variant}"] += 1
 
 
 def kernel_launches() -> dict:
@@ -71,23 +81,35 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
+THREAD_SHAPES = {"hercules": ((3, 4, 0), (2, 4, 0)),
+                 "rca": ((1, 1, 1), (1, 32, 1))}
+"""The HERCULES and RCA kernels' thread shapes (voxels a thread, threads of
+a run in a warp, runs first) that ``csrc/das.cu`` instantiates
+(``launch_shape``), the default first; the others for single-frame launches
+only."""
+
 # C signatures of the entry points (csrc/*.cu): pointers and the stream are
 # void*, so ctypes passes them at full width.
 SIGNATURES = {
-    # rf, h (int8 A x A), out, C, A, S, scale, stream
-    "decode_int16": [_P, _P, _P, _I, _I, _I, _F, _P],
+    # rf, h (int8 A x A), out, C, A, S, scale, samples of a tile, warps
+    # across H's rows, stream
+    "decode_int16": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     "decode_f32": [_P, _P, _P, _I, _I, _I, _F, _P],
+    # A, samples of a tile, warps across H's rows (int16 kernel), int* fits
+    "decode_fits": [_I, _I, _I, _P],
     # family, rf, scalars, RCA table, tx_pos, tx_weight, tx_row, out, inco,
     # channels, channel_count, rf_rows, samples, n_tx,
     # nx, ny, nz, gnx, gny, gnz, mode, iq, coherency, frames,
     # transmits per pass of the FORCES index table, run of equal lateral
-    # coordinates and transmit walk (HERCULES, RCA), stream
+    # coordinates and transmit walk (HERCULES, RCA), thread shape (voxels,
+    # lanes, runs first; HERCULES, RCA), stream
     "das_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I,
-                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                   _I, _I, _I, _P],
     # family, mode, iq, coherency, frames, n_tx, transmits per pass,
-    # int* blocks per SM
-    "das_occupancy": [_I, _I, _I, _I, _I, _I, _I, _P],
+    # thread shape (voxels, lanes, runs first), int* blocks per SM
+    "das_occupancy": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, phasor (cos | sin per pair), taps (re | im), out,
     # rows, S_in, n_out, L, D, int16 input, complex taps, scale, stream
     "demodulate": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],

@@ -30,9 +30,10 @@ counts each instantiation of the int8 skeleton's
 kernels (``decode_i8_kernel``, ``i8_mma_kernel``) whole: its instructions,
 MMAs, ``ldmatrix``, ``cp.async`` and the rest of :data:`I8_OPS`.
 ``--source F.cu --same-as G.cu`` also says, for each int8 kernel and each
-instantiation of the filter kernels (``demodulate_kernel``, ``fir_kernel``)
-and of K7's and the K8/K9 bundle's gather kernel (``gather_walk_kernel``)
-that both compile, whether its SASS is the same
+instantiation of the filter kernels (``demodulate_kernel``, ``fir_kernel``),
+of K7's and the K8/K9 bundle's gather kernel (``gather_walk_kernel``), of
+the DAS kernels and of the float32 decode kernel that both compile, whether
+its SASS is the same
 instruction for instruction (the decode kernel of an older ``decode.cu``
 against the current one, say):
 
@@ -61,7 +62,8 @@ from . import build
 
 FAMILIES = ("forces", "hercules", "rca")
 _DAS = re.compile(r"das_(forces|hercules|rca)_kernel"
-                  r"ILi(\d)ELb([01])ELb([01])ELi(\d)E")
+                  r"ILi(\d)ELb([01])ELb([01])ELi(\d)E"
+                  r"(?:Li(\d+)ELi(\d+)ELb([01])E)?")
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _BRA = re.compile(r"\bBRA(?:\.\S+)?\s+(?:`?\(?)(0x[0-9a-f]+|\.L_x_\d+)")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
@@ -209,7 +211,9 @@ def pair_loops(text: str, family: str = "forces") -> dict:
         m = _DAS.search(name)
         if not m or m.group(1) != family:
             continue
-        mode, iq, coh, fb = (int(g) for g in m.groups()[1:])
+        mode, iq, coh, fb = (int(g) for g in m.groups()[1:5])
+        shape = (tuple(int(g) for g in m.groups()[5:])
+                 if m.group(6) is not None else None)
         # an IQ sample is a 64-bit load; sincosf's table loads are 32-bit
         counts = inner_loop(instrs, labels, TAPS[mode] * fb, bool(iq))
         if counts is None:
@@ -218,6 +222,9 @@ def pair_loops(text: str, family: str = "forces") -> dict:
         counts["per_pair"] = counts["instructions"] / counts["pairs"]
         key = (f"{MODES[mode]} {'iq' if iq else 'real'}"
                f"{' coh' if coh else ''} fb{fb}")
+        if shape is not None and shape != build.THREAD_SHAPES[family][0]:
+            # another thread shape than the family's default
+            key += " t{}.{}.{}".format(*shape)
         out[key] = counts
     return out
 
@@ -402,15 +409,32 @@ _FILTER = re.compile(r"(demodulate|fir)_kernelI(.+?)EEv")
 
 
 _SAME_GATHER = re.compile(r"(gather_walk_kernel)I(.+?)EEv")
+_SAME_TUNED = re.compile(r"(das_(?:forces|hercules|rca)_kernel|"
+                         r"decode_f32_kernel|decode_i8_tile_kernel)"
+                         r"I(.+?)EEv")
 
 
 def same_key(name: str) -> str | None:
     """:func:`i8_key` of an int8 kernel, "<demodulate|fir> <template
     arguments as mangled>" of a filter kernel, "gather_walk_kernel
     <template arguments>" of K7's and the K8/K9 bundle's kernel
-    (``csrc/micro_gather.cu``), None for any other."""
-    m = _FILTER.search(name) or _SAME_GATHER.search(name)
-    return i8_key(name) or (f"{m.group(1)} {m.group(2)}" if m else None)
+    (``csrc/micro_gather.cu``), the same of each DAS kernel
+    (``das_<family>_kernel``; a default thread shape keyed without it) and
+    of the decode kernels' other instantiations (``decode_f32_kernel``,
+    ``decode_i8_tile_kernel``), None for any other."""
+    m = (_FILTER.search(name) or _SAME_GATHER.search(name)
+         or _SAME_TUNED.search(name))
+    if m is None:
+        return i8_key(name)
+    args = m.group(2)
+    d = _DAS.search(name)
+    if d is not None and d.group(6) is not None and tuple(
+            int(g) for g in d.groups()[5:]) == build.THREAD_SHAPES[
+                d.group(1)][0]:
+        # a default thread shape's kernel keeps the key it had before the
+        # shape was a template argument
+        args = args[:-len("Li{}ELi{}ELb{}E".format(*d.groups()[5:]))]
+    return i8_key(name) or f"{m.group(1)} {args}"
 
 
 def same_as(source, other) -> dict:

@@ -156,7 +156,11 @@ def build_plan(parameters: Parameters, pipeline: PipelineSpec,
     dynamic parameters on ``device`` (a GPU unless the caller asks for the
     CPU; ``RuntimeError`` when no GPU is available).  ``frame_batch=B > 1``
     builds a batched plan: B frames per call, each DAS launch taking up to
-    four of them (``ops/das_cuda.py``)."""
+    four of them (``ops/das_cuda.py``).  On the GPU the DAS launch tables
+    are built here under the knobs installed for the plan's configuration
+    (``das_cuda.TUNED``): a ``load_tuned`` or ``autotune_das`` after it
+    takes effect at the next ``build_plan``, as a JAX plan traced before a
+    table changed keeps its knobs until it is traced again."""
     dev = resolve_device(device)
     stage_descs, sample_count, fs, time_offset, iq = _plan_stages(
         parameters, pipeline, filters)
@@ -211,7 +215,8 @@ def build_plan(parameters: Parameters, pipeline: PipelineSpec,
                                          frame_batch=int(frame_batch))
         das_dyn = das_ops.make_dynamic(dp, dev)
         if dev.type == "cuda" and das_static.family != "none":
-            # the kernel's scalar vector and tables depend only on the plan
+            # the kernel's scalar vector, tables and launch knobs depend
+            # only on the plan
             das_dyn["launch"] = launch_tables(das_static, das_dyn)
         stage_descs.append(StageDesc(kind=ShaderKind.DAS, das=das_static))
 

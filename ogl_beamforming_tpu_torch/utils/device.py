@@ -35,3 +35,18 @@ def to_host(tensor) -> np.ndarray:
     if isinstance(tensor, np.ndarray):
         return tensor
     return tensor.detach().cpu().numpy()
+
+
+def event_seconds(fn, iters: int, warmup: int) -> float:
+    """Seconds one call of ``fn`` takes on the card: CUDA events around
+    ``iters`` calls after ``warmup`` calls (the autotuners' timer)."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3 / max(iters, 1)

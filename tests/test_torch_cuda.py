@@ -1291,3 +1291,242 @@ def test_entry_forward_on_the_card_equals_the_cpu_entry(dev):
     ref = cpu_forward(torch.from_numpy(raw))
     assert out.is_cuda and out.shape == ref.shape
     assert nrmse(ref.numpy(), out.cpu().numpy()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# Launch knobs (ops/das_cuda.py TUNED, ops/decode.py DECODE_TUNED) and the
+# autotuners.
+
+
+@pytest.fixture
+def tables():
+    """das_cuda's and decode's knob tables, emptied for the test (the
+    shipped tables not loaded) and put back after it."""
+    dicts = (das_cuda.TUNED, das_cuda.ABLATE, decode.DECODE_TUNED,
+             decode.DECODE_ABLATE)
+    saved = [dict(t) for t in dicts]
+    loaded = (das_cuda._SHIPPED_TUNED_LOADED, decode._DECODE_SHIPPED_LOADED)
+    for t in dicts:
+        t.clear()
+    das_cuda._SHIPPED_TUNED_LOADED = decode._DECODE_SHIPPED_LOADED = True
+    yield
+    for t, old in zip(dicts, saved):
+        t.clear()
+        t.update(old)
+    das_cuda._SHIPPED_TUNED_LOADED, decode._DECODE_SHIPPED_LOADED = loaded
+
+
+def _outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _knob_params(family, interp, coherency):
+    if family in ("hercules", "uhercules"):
+        return _hercules_params(family, "tx_columns", interp, coherency,
+                                focus=6e-3)
+    return _das_params(family, interp, coherency)
+
+
+# Knobs that keep every voxel's order of accumulation, so the output is the
+# default's bit for bit: the thread shape, the HERCULES walk and, for
+# HERCULES and RCA, single-frame launches of a batch.  The FORCES index
+# table's pass sums a voxel's pairs in passes (a channel's transmits of one
+# pass, then the next pass), so another pass rounds differently: held to
+# the twin bound, 1e-4, against the default and the twin.  FORCES frames a
+# launch: 1e-6, as test_frame_batch_kernel_matches_single_frames.
+def _same_order(family, knobs) -> bool:
+    return "tx_pass" not in knobs and not (family == "forces"
+                                           and "fb" in knobs)
+
+
+@pytest.mark.parametrize("fb", [1, 4])
+@pytest.mark.parametrize("coherency", [False, True])
+@pytest.mark.parametrize("iq", [False, True])
+@pytest.mark.parametrize("interp", list(InterpolationMode))
+@pytest.mark.parametrize("family", ["forces", "uforces", "readi", "hercules",
+                                    "uhercules", "flash", "tpw", "vls"])
+def test_every_das_knob_equals_the_default(dev, tables, family, interp, iq,
+                                           coherency, fb):
+    """Every default candidate of autotune_das, installed in TUNED, against
+    the default knobs (bit for bit where the knob keeps the order of
+    accumulation) and the twin (1e-4); a thread shape's launch is counted
+    under its shape."""
+    import dataclasses
+    p = _knob_params(family, interp, coherency)
+    st = das.make_static(p, iq=iq)
+    dyn = das.make_dynamic(p, dev)
+    if fb > 1:
+        st = dataclasses.replace(st, frame_batch=fb)
+        rf = torch.stack([_rf(p, iq, dev) * (1.0 + b) - b for b in range(fb)])
+    else:
+        rf = _rf(p, iq, dev)
+    key = das_cuda._tune_key(st)
+    ref = _outputs(das.das(rf, dyn, st))
+    twin = _outputs(das.das_ref(rf, dyn, st))
+    candidates = das_cuda._default_candidates(st)
+    assert candidates[0] == {} and len(candidates) > 1
+    for knobs in candidates[1:]:
+        das_cuda.TUNED[key] = knobs
+        tables = das_cuda.launch_tables(st, dyn)
+        for name, value in knobs.items():
+            assert tables[name] == (tuple(value) if name == "thread"
+                                    else value)
+        before = dict(build.VARIANT_LAUNCHES)
+        out = _outputs(das.das(rf, dyn, st))
+        if "thread" in knobs:
+            shape = f"das_{st.family} thread " + ".".join(
+                str(v) for v in knobs["thread"])
+            assert build.VARIANT_LAUNCHES[shape] == before.get(shape, 0) + 1
+        for o, r, t in zip(out, ref, twin):
+            if _same_order(st.family, knobs):
+                assert torch.equal(o, r), knobs
+            else:
+                tol = 1e-6 if "fb" in knobs else 1e-4
+                assert nrmse(r.cpu().numpy(), o.cpu().numpy()) <= tol, knobs
+            assert nrmse(t.cpu().numpy(), o.cpu().numpy()) <= 1e-4, knobs
+
+
+@pytest.mark.parametrize("shape", [(3, 2, 33), (2, 3, 96)])
+@pytest.mark.parametrize("family", ["hercules", "flash"])
+def test_thread_shapes_on_ragged_runs(dev, tables, family, shape):
+    """Every thread shape on grids whose runs (33, 96 depths) the shape's
+    voxels and lanes do not divide: bit-equal to the default shape."""
+    import dataclasses
+    p = _knob_params(family, InterpolationMode.Cubic, True)
+    p = dataclasses.replace(p, output_points=shape)
+    rf = _rf(p, True, dev)
+    dyn, st = das.make_dynamic(p, dev), das.make_static(p, iq=True)
+    ref = das.das(rf, dyn, st)
+    for thread in build.THREAD_SHAPES[st.family][1:]:
+        das_cuda.TUNED[das_cuda._tune_key(st)] = {"thread": list(thread)}
+        for o, r in zip(das.das(rf, dyn, st), ref):
+            assert torch.equal(o, r), thread
+
+
+def test_thread_shape_occupancy(dev, tables):
+    """das_occupancy answers for every thread shape; a four-frame launch has
+    only the default."""
+    for family in ("hercules", "flash"):
+        p = _knob_params(family, InterpolationMode.Cubic, False)
+        st = das.make_static(p, iq=True)
+        for thread in build.THREAD_SHAPES[st.family]:
+            assert das_cuda.blocks_per_sm(st, 4, thread=thread) > 0
+        with pytest.raises(RuntimeError, match="das_occupancy"):
+            das_cuda.blocks_per_sm(st, 4, frames=4,
+                                   thread=build.THREAD_SHAPES[st.family][1])
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.float32,
+                                   torch.complex64])
+@pytest.mark.parametrize("a", [12, 16, 64, 256])
+def test_every_decode_knob_equals_the_default(dev, tables, a, dtype):
+    """Every decode candidate the card launches at order ``a``, installed in
+    DECODE_TUNED, bit-equal to the default launch, on a ragged and a
+    vectorised sample count; float input has the default alone."""
+    rng = np.random.default_rng(a)
+    h = decode.hadamard_matrix(a, dev)
+    for c, s in ((3, 1000), (2, 4097)):
+        if dtype == torch.int16:
+            x = rng.integers(-32768, 32768, (c, a, s), dtype=np.int16)
+        else:
+            x = rng.standard_normal((c, a, s)).astype(np.float32)
+            if dtype == torch.complex64:
+                x = x + 1j * rng.standard_normal((c, a, s)).astype(np.float32)
+        rf = torch.from_numpy(x).to(dev)
+        ref = decode.decode_hadamard(rf, h)
+        candidates = decode.decode_candidates(rf)
+        assert candidates[0] == {}
+        if dtype == torch.int16:   # 128-sample tiles do not fit at 256
+            assert len(candidates) == (2 if a == 256 else 3)
+        else:
+            assert candidates == [{}]
+        key = (c, a, s * (2 if dtype == torch.complex64 else 1))
+        for knobs in candidates[1:]:
+            decode.DECODE_TUNED[key] = knobs
+            assert decode.decode_knobs(key) == knobs
+            before = build.kernel_launches()
+            assert torch.equal(decode.decode_hadamard(rf, h), ref), knobs
+            kernel = "decode_i8_tile_kernel"
+            assert build.kernel_launches()[kernel] == before.get(kernel,
+                                                                 0) + 1
+        decode.DECODE_TUNED.pop(key, None)
+
+
+def test_autotune_das_installs_its_best(dev, tables):
+    """autotune_das on a HERCULES frame installs its fastest candidate under
+    the configuration's key, and a plan's launch tables built after it
+    carry those knobs."""
+    p = _knob_params("hercules", InterpolationMode.Linear, False)
+    rf = _rf(p, False, dev)
+    dyn, st = das.make_dynamic(p, dev), das.make_static(p, iq=False)
+    best, results = das_cuda.autotune_das(rf, dyn, st, iters=2, passes=1)
+    key = das_cuda._tune_key(st)
+    assert das_cuda.TUNED[key] == best
+    assert set(results) == {repr(k) for k in das_cuda._default_candidates(st)}
+    assert all(isinstance(t, float) and t > 0 for t in results.values())
+    assert best in das_cuda._default_candidates(st)
+    tables = das_cuda.launch_tables(st, dyn)
+    assert tables["thread"] == tuple(best.get(
+        "thread", build.THREAD_SHAPES["hercules"][0]))
+
+
+def test_autotune_decode_installs_its_best(dev, tables):
+    rf = torch.from_numpy(np.random.default_rng(1).integers(
+        -2048, 2048, (4, 64, 2048), dtype=np.int16)).to(dev)
+    h = decode.hadamard_matrix(64, dev)
+    best, results = decode.autotune_decode(rf, h, iters=3, warmup=1,
+                                           passes=1)
+    assert decode.DECODE_TUNED[(4, 64, 2048)] == best
+    assert decode.DECODE_ABLATE == {}
+    assert set(results) == {repr(k) for k in decode.decode_candidates(rf)}
+    assert all(isinstance(t, float) for t in results.values())
+    cplx = torch.complex(rf[:, :, :1024].float(), rf[:, :, 1024:].float())
+    best_c, _ = decode.autotune_decode(cplx, h, iters=3, warmup=1, passes=1)
+    # the interleaved key is the int16 frame's, whose knobs stay: the
+    # float32 kernel has none
+    assert best_c == {} and decode.DECODE_TUNED[(4, 64, 2048)] == best
+
+
+def test_plan_launches_the_installed_knobs(dev, tables, tmp_path):
+    """A plan built after load_tuned launches the table's knobs (the thread
+    shape's launch counted), and its frame equals the frame of a plan built
+    before, bit for bit."""
+    from ogl_beamforming_tpu_torch.pipeline.plan import (build_plan,
+                                                         compose_stages)
+    p, pipe = presets.hercules_3d(channel_count=16, acquisition_count=16,
+                                  sample_count=512, output_points=(8, 8, 24))
+    raw = torch.from_numpy(np.random.default_rng(2).integers(
+        -2048, 2048, (16, 16, 512), dtype=np.int16)).to(dev)
+    before = build_plan(p, pipe, {}, device=dev)
+    ref = compose_stages(before.descriptor, raw, before.dyn)
+    st = next(sd.das for sd in before.descriptor.stages if sd.das)
+    das_cuda.TUNED[das_cuda._tune_key(st)] = {"thread": [2, 4, 0],
+                                              "tx_walk": 0}
+    path = tmp_path / "tuned.json"
+    das_cuda.save_tuned(path)
+    das_cuda.TUNED.clear()
+    das_cuda.load_tuned(path)
+    after = build_plan(p, pipe, {}, device=dev)
+    assert before.dyn["das"]["launch"]["thread"] == (3, 4, 0)
+    assert after.dyn["das"]["launch"]["thread"] == (2, 4, 0)
+    assert after.dyn["das"]["launch"]["tx_walk"] == 0
+    n = build.VARIANT_LAUNCHES["das_hercules thread 2.4.0"]
+    out = compose_stages(after.descriptor, raw, after.dyn)
+    assert build.VARIANT_LAUNCHES["das_hercules thread 2.4.0"] == n + 1
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.float32,
+                                   torch.complex64])
+def test_pretune_inputs_on_the_card(dev, dtype):
+    """pretune's inputs are drawn on the card from a seed: the same seed
+    gives the same tensor, another seed another."""
+    from ogl_beamforming_tpu_torch import pretune
+    a = pretune.device_input((3, 4, 5), dtype, 7)
+    assert a.is_cuda and a.dtype == dtype and a.shape == (3, 4, 5)
+    assert torch.equal(a, pretune.device_input((3, 4, 5), dtype, 7))
+    assert not torch.equal(a, pretune.device_input((3, 4, 5), dtype, 8))
+    p = _knob_params("flash", InterpolationMode.Cubic, False)
+    st = das.make_static(p, iq=dtype == torch.complex64)
+    rf = pretune.das_input(st, 1)
+    assert rf.shape == (8, 1, 256) and rf.is_cuda

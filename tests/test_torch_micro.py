@@ -372,4 +372,8 @@ def test_sass_same_as_keys_the_filter_kernels():
         "demodulate sLb0ELi4ELi16E"
     assert sass.same_key("_ZN12_GLOBAL__N_110fir_kernelILb1ELb0ELi8ELi0EEEvPK"
                          "fS2_Pviiiiiii") == "fir Lb1ELb0ELi8ELi0E"
-    assert sass.same_key("_ZN12_GLOBAL__N_115das_rca_kernelILi2EEEvv") is None
+    # the DAS kernels are keyed too since their thread shape became a
+    # launch choice; kernels outside --same-as still have no key
+    assert sass.same_key("_ZN12_GLOBAL__N_115das_rca_kernelILi2EEEvv") == \
+        "das_rca_kernel Li2E"
+    assert sass.same_key("_ZN12_GLOBAL__N_113onehot_kernelILi8EEEvv") is None

@@ -572,7 +572,8 @@ def test_port_imports_no_jax():
         "        'ogl_beamforming_tpu_torch.viewer',\n"
         "        'ogl_beamforming_tpu_torch.viewer_xplane',\n"
         "        'ogl_beamforming_tpu_torch.viewer_web',\n"
-        "        'ogl_beamforming_tpu_torch.entry'} | {\n"
+        "        'ogl_beamforming_tpu_torch.entry',\n"
+        "        'ogl_beamforming_tpu_torch.pretune'} | {\n"
         "    'ogl_beamforming_tpu_torch.examples.' + n for n in (\n"
         "        'throughput', 'decode_sweep', 'point_scatterer',\n"
         "        'live_streaming')} | {\n"

@@ -92,6 +92,36 @@ def test_copy_overlap_counts_copy_time_under_kernels(tmp_path):
     assert DeviceProfile(0.0, {}).copy_overlap_seconds == 0.0
 
 
+def test_parse_trace_leaves_out_work_launched_before_the_call(tmp_path):
+    """The kernel launched before ``device_time``'s annotation around its
+    call (the one it launches to take a lost first event, roadmap C2) and
+    its launch call are left out; without the annotation nothing is."""
+    def launch(corr, ts):
+        return {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+                "ts": ts, "dur": 2.0, "args": {"correlation": corr}}
+
+    def kernel(name, corr, ts, dur):
+        return {"ph": "X", "cat": "kernel", "name": name, "ts": ts,
+                "dur": dur, "args": {"correlation": corr}}
+
+    call = {"ph": "X", "cat": "user_annotation", "name": profiling._CALL,
+            "ts": 100.0, "dur": 500.0}
+    events = [launch(1, 0.0), kernel("fill", 1, 5.0, 1.0), call,
+              launch(2, 110.0), kernel("das_forces_kernel", 2, 120.0, 300.0),
+              launch(3, 115.0)]
+    _write_trace(str(tmp_path), events)
+    prof = _parse_trace(str(tmp_path))
+    assert [k[0] for k in prof.kernels] == ["das_forces_kernel"]
+    assert abs(prof.module_seconds - 300e-6) < 1e-12
+    assert prof.launch_calls == [110.0, 115.0]
+    assert prof.orphan_launches == [115.0]
+    events.remove(call)
+    _write_trace(str(tmp_path), events)
+    whole = _parse_trace(str(tmp_path))
+    assert [k[0] for k in whole.kernels] == ["fill", "das_forces_kernel"]
+    assert whole.launch_calls == [0.0, 110.0, 115.0]
+
+
 def test_parse_trace_without_a_trace_raises(tmp_path):
     with pytest.raises(RuntimeError, match="no trace"):
         _parse_trace(str(tmp_path))
