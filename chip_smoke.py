@@ -235,6 +235,29 @@ line:
               loaded from a file, launched by a plan built after
               (build.VARIANT_LAUNCHES), its frame bit-equal.  Prints each
               candidate's ms with the card's name and power limit.
+ 12. mesh    the parallel package (parallel/sharding.py, multihost.py) at
+              full width on virtual meshes of cuda:0 (positions of one card
+              run one after another: the sharding's overhead, not scaling;
+              the card tests and experiments/mesh_sweep.py --cards take
+              meshes over several cards): the Quickstart
+              through Beamformer(mesh=make_mesh([cuda:0] * 4)) beside
+              Beamformer(device="cuda") on the same raw frames (a warm-up
+              and 5 frames; NRMSE 1e-5, peaks within one voxel, decode and
+              DAS 4 times a frame, shard k's scalar vector at channel
+              offset 32 k), then 5 frames through a StreamingSession on the
+              meshed Beamformer against its synchronous frames (NRMSE
+              1e-6); path D on make_mesh_2d(2, 2) and an 8-angle RCA_TPW
+              compounding (float32 256 x 8 x 4096 -> 512 x 1024) on
+              make_mesh_tx(2, 4) against their unsharded plans (1e-5, the
+              peaks on target); two gloo ranks of this script on cuda:0
+              (--mesh-worker), each feeding only its local_channel_slice
+              rows, channels summed by all_reduce, and slabs one a rank
+              brought together by all_gather, rank 0's gathered frames
+              against the unsharded frame (1e-5); entry.dryrun_multichip(8)
+              and (3) and the multihost_feeders example (--frames 2).
+              Prints device ms/frame sharded and unsharded with the card's
+              name and power limit.  The phase's launches go onto the
+              kernel table's rows as ``phase12_launches``.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1089,10 +1112,12 @@ def das_params(p, sample_count, fs, time_offset, vt=None, **kw):
         focus_depth=float(p.focal_vector[1]), **kw)
 
 
-def beamformer(dev, p, shaders, data_kind, filters=(), sparse=None):
-    """A fresh Beamformer on ``dev`` configured with ``p``."""
+def beamformer(dev, p, shaders, data_kind, filters=(), sparse=None,
+               mesh=None):
+    """A fresh Beamformer on ``dev`` (over ``mesh`` when given) configured
+    with ``p``."""
     from ogl_beamforming_tpu_torch.pipeline.executor import Beamformer
-    bf = Beamformer(device=dev)
+    bf = Beamformer(device=dev, mesh=mesh)
     for slot, fp in filters:
         bf.create_filter(fp, filter_slot=slot)
     bf.push_parameters(p)
@@ -1329,17 +1354,27 @@ def target_world(params, voxel) -> np.ndarray:
     return (vt @ np.array([*u, 1.0]))[:3]
 
 
+def quickstart_parameters():
+    """The Quickstart's parameters, pipeline and the point target's
+    voxel."""
+    from ogl_beamforming_tpu_torch.models import presets
+
+    params, pipe = presets.forces_compounding(
+        channel_count=128, transmit_count=128, sample_count=4096,
+        demodulate=False)
+    voxel = (int(params.output_points[0]) // 2,
+             int(params.output_points[1]) // 2, 0)
+    return params, pipe, voxel
+
+
 def quickstart():
     """The Quickstart's parameters, pipeline, point-target frame and the
     target's voxel."""
-    from ogl_beamforming_tpu_torch.models import presets
     from ogl_beamforming_tpu_torch.ops import decode
 
-    c, a, s = 128, 128, 4096
-    params, pipe = presets.forces_compounding(
-        channel_count=c, transmit_count=a, sample_count=s, demodulate=False)
-    voxel = (int(params.output_points[0]) // 2,
-             int(params.output_points[1]) // 2, 0)
+    params, pipe, voxel = quickstart_parameters()
+    c, a, s = (params.channel_count, params.acquisition_count,
+               params.sample_count)
     raw = synthesize_forces_frame(
         c, a, s, params.sampling_frequency, params.speed_of_sound,
         float(params.xdc_element_pitch[0]), target_world(params, voxel),
@@ -1432,7 +1467,9 @@ def phase_main_hercules(dev) -> dict:
                  ("decode_hadamard", "das_hercules"))
 
 
-def phase_main_uforces(dev) -> dict:
+def uforces():
+    """Path D's parameters, pipeline, sparse transmits, point-target frame
+    and the target's voxel."""
     from ogl_beamforming_tpu_torch.models import presets
     from ogl_beamforming_tpu_torch.ops import decode
 
@@ -1447,6 +1484,11 @@ def phase_main_uforces(dev) -> dict:
         params.speed_of_sound, float(params.xdc_element_pitch[0]),
         target_world(params, voxel), params.demodulation_frequency,
         decode.hadamard_matrix(a, "cpu").numpy(), elements=sparse)
+    return params, pipe, sparse, raw, voxel
+
+
+def phase_main_uforces(dev) -> dict:
+    params, pipe, sparse, raw, voxel = uforces()
     return drive("main_uforces", dev, params, pipe, raw, voxel,
                  ("decode_hadamard", "das_forces"), sparse=sparse)
 
@@ -3529,6 +3571,364 @@ def phase_tune(dev, smi_line) -> None:
           f"{smi_line}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: mesh.  The port's parallel package (parallel/sharding.py,
+# parallel/multihost.py) at full width on virtual meshes of cuda:0: the
+# Quickstart through Beamformer(mesh=...) (synchronous and streamed), path
+# D on channels x slabs, an 8-angle RCA_TPW compounding on channels x
+# transmits, two gloo ranks (this script again, MESH_WORKER) each feeding
+# its own channel rows, and the entry points.  Positions of one card run one
+# after another there: the times measure the sharding's overhead, not
+# multi-GPU scaling (the card tests, two NCCL ranks among them, and
+# experiments/mesh_sweep.py --cards run meshes over several cards).
+# ---------------------------------------------------------------------------
+
+MESH_WORKER = "--mesh-worker"
+MESH_TIMEOUT = 240      # seconds for a worker rank or the example
+MESH_POSITIONS = 4      # the Quickstart's channel shards
+TPW_ANGLES = 8
+
+
+def launches_since_clear(names) -> dict:
+    from ogl_beamforming_tpu_torch.kernels import build
+    return {k: build.LAUNCHES[k] for k in names}
+
+
+def mesh_quickstart(dev, smi_line) -> dict:
+    """The Quickstart through Beamformer(mesh=make_mesh([cuda:0] * 4)) and
+    Beamformer(device="cuda") on the same raw frames (a warm-up, then RUNS
+    frames of the stream variants): NRMSE 1e-5, peaks within one voxel, the
+    decode and DAS kernels 4 times a frame, shard k's scalar vector at
+    channel offset 32 k; then RUNS frames through a StreamingSession on the
+    meshed Beamformer, each against its synchronous frame (NRMSE 1e-6, the
+    count bit for bit printed).  Returns the launches."""
+    from ogl_beamforming_tpu_torch.kernels import build
+    from ogl_beamforming_tpu_torch.parallel.sharding import make_mesh
+    from ogl_beamforming_tpu_torch.runtime.streaming import StreamingSession
+
+    params, pipe, raw, voxel = quickstart()
+    n = MESH_POSITIONS
+    kernels = ("decode_hadamard", "das_forces")
+    ref_bf = beamformer(dev, params, pipe.shaders, pipe.data_kind)
+    bf = beamformer(dev, params, pipe.shaders, pipe.data_kind,
+                    mesh=make_mesh([dev] * n))
+    ref_bf.warmup()
+    bf.warmup()
+    variants = stream_variants(raw)
+    frames_in = [variants[i % STREAM_VARIANTS] for i in range(RUNS)]
+    first_ref = ref_bf.stats._frame_index
+    refs = [ref_bf.push_data_with_compute(v).to_numpy() for v in frames_in]
+    torch.cuda.synchronize()
+
+    build.LAUNCHES.clear()
+    first = bf.stats._frame_index
+    outs = [bf.push_data_with_compute(v).to_numpy() for v in frames_in]
+    launches = launches_since_clear(kernels)
+    check(launches == {k: n * RUNS for k in kernels},
+          f"mesh quickstart: launches {launches} != {n} a frame")
+    worst = max(nrmse(r, o) for r, o in zip(refs, outs))
+    check(worst <= 1e-5, f"mesh quickstart: NRMSE {worst:.3e} > 1e-5")
+    for i, img in enumerate(outs):
+        peak = peak_check(f"mesh quickstart frame {i}", img, voxel)
+    plan = bf._blocks[0]._plan
+    offsets = [float(sh.dyn["das"]["launch"]["scalars"][19])
+               for sh in plan.shards]
+    per = params.channel_count // n
+    check(offsets == [per * k for k in range(n)],
+          f"mesh quickstart: shard channel offsets {offsets}")
+    sharded = statistics.median(frame_ms(bf, first, RUNS))
+    single = statistics.median(frame_ms(ref_bf, first_ref, RUNS))
+    split = stage_split(bf, first, RUNS)[1]
+    split_ref = stage_split(ref_bf, first_ref, RUNS)[1]
+    print(f"[mesh] Quickstart on {n} positions of {dev} (128 channels, "
+          f"{per} a shard): launches {launches}; NRMSE <= {worst:.3e} "
+          f"against Beamformer(device='cuda'); peak {peak} vs target "
+          f"{voxel}; shard scalar channel offsets {offsets}")
+    print(f"[mesh] Quickstart device ms/frame {sharded:.3f} sharded on {n} "
+          f"positions of one card ({split}), {single:.3f} unsharded "
+          f"({split_ref}; median CUDA events over {RUNS}); {smi_line}")
+    sync = [bf.push_data_with_compute(v).data.clone() for v in frames_in]
+    with StreamingSession(bf) as stream:
+        stream.submit(raw)                  # the ring's first allocation
+        stream.drain(timeout=STREAM_TIMEOUT)
+        build.LAUNCHES.clear()
+        handles = [stream.submit(v) for v in frames_in]
+        stream.drain(timeout=STREAM_TIMEOUT)
+        streamed = launches_since_clear(kernels)
+        frames = [h.result(timeout=STREAM_TIMEOUT).data for h in handles]
+    check(streamed == {k: n * RUNS for k in kernels},
+          f"mesh streaming: launches {streamed} != {n} a frame")
+    exact = sum(bool(torch.equal(f, r)) for f, r in zip(frames, sync))
+    worst = max(nrmse(r.cpu().numpy(), f.cpu().numpy())
+                for f, r in zip(frames, sync))
+    check(worst <= 1e-6, f"mesh streaming: NRMSE {worst:.3e} > 1e-6")
+    print(f"[mesh] {RUNS} Quickstart frames through a StreamingSession on "
+          f"the meshed Beamformer: launches {streamed}; against its "
+          f"synchronous frames {exact} of {RUNS} bit for bit, NRMSE <= "
+          f"{worst:.3e}")
+    return {k: launches[k] + streamed[k] for k in kernels}
+
+
+def stage_ms(run, stages, runs: int = RUNS):
+    """``run(mark)`` ``runs`` times with the executor's stage clock (CUDA
+    events at each stage's end); returns the last output and the median ms
+    per stage, and its split as text."""
+    from ogl_beamforming_tpu_torch.pipeline.executor import _StageClock
+    rows = []
+    for _ in range(runs):
+        clock = _StageClock(torch.device("cuda", 0))
+        out = run(clock.mark)
+        rows.append([t * 1e3 for t in clock.seconds()])
+    ms = np.median(rows, axis=0)
+    return out, ms, " + ".join(f"{sd.kind.name} {t:.3f}"
+                               for sd, t in zip(stages, ms))
+
+
+def run_sharded(label, splan, plan, x, voxel, kernels, shards,
+                smi_line) -> dict:
+    """The unsharded ``plan`` on ``x`` (a warm-up and RUNS timed frames),
+    then a warm-up of ``splan`` and RUNS frames with the launch counts set
+    to 0 just before: each of ``kernels`` ``shards`` times a frame, the
+    frame against the unsharded one (NRMSE 1e-5) with its peak within one
+    voxel of ``voxel``.  Both timed stage by stage.  Returns the
+    launches."""
+    from ogl_beamforming_tpu_torch.kernels import build
+    stages = plan.descriptor.stages
+    plan(x)
+    ref, single, single_split = stage_ms(lambda m: plan(x, mark=m), stages)
+    ref = ref.cpu().numpy()
+    splan(x)
+    torch.cuda.synchronize()
+    build.LAUNCHES.clear()
+    out, sharded, split = stage_ms(lambda m: splan(x, mark=m), stages)
+    launches = launches_since_clear(kernels)
+    check(launches == {k: shards * RUNS for k in kernels},
+          f"{label}: launches {launches} != {shards} a frame")
+    img = out.cpu().numpy()
+    err = nrmse(ref, img)
+    check(err <= 1e-5, f"{label}: NRMSE {err:.3e} against unsharded > 1e-5")
+    peak = peak_check(label, img, voxel)
+    print(f"[mesh] {label}: launches {launches}; NRMSE {err:.3e} against "
+          f"the unsharded plan; peak {peak} vs target {tuple(voxel)}; "
+          f"{sharded.sum():.3f} ms/frame sharded ({split}), "
+          f"{single.sum():.3f} unsharded ({single_split}; median CUDA "
+          f"events over {RUNS}); {smi_line}")
+    return launches
+
+
+def mesh_path_d(dev, smi_line) -> dict:
+    """Path D (uFORCES 3D with coherency, 256 x 64 x 2048 int16 -> 128^3)
+    on make_mesh_2d(2, 2) over cuda:0 against its unsharded plan."""
+    from ogl_beamforming_tpu_torch.parallel.sharding import (make_mesh_2d,
+                                                             shard_plan_2d)
+    params, pipe, sparse, raw, voxel = uforces()
+    bf = beamformer(dev, params, pipe.shaders, pipe.data_kind, sparse=sparse)
+    b = bf._block(0)
+    plan = bf._ensure_plan(b)
+    x = torch.from_numpy(bf._prepare(b, raw)).to(dev)
+    splan = shard_plan_2d(plan, make_mesh_2d(2, 2, [dev] * 4))
+    return run_sharded("path D on 2 channels x 2 slabs", splan, plan, x,
+                       voxel, ("decode_hadamard", "das_forces"), 4, smi_line)
+
+
+def synthesize_tpw_frame(params, fv, target) -> np.ndarray:
+    """A point target under steered plane waves (``fv``: angle in degrees,
+    infinite depth) from the columns, received by column ``c`` at ``x = c
+    p``: ``x sin(angle) + z cos(angle)`` plus the receive leg, a cosine
+    burst at the demodulation frequency; float32 (C, A, S)."""
+    c, s = params.channel_count, params.sample_count
+    fs, sos = params.sampling_frequency, params.speed_of_sound
+    f0 = params.demodulation_frequency
+    x, _, z = target
+    angle = np.radians(fv[:, 0].astype(np.float64))
+    tx = x * np.sin(angle) + z * np.cos(angle)
+    rx = np.sqrt((x - np.arange(c) * float(params.xdc_element_pitch[0])) ** 2
+                 + z * z)
+    delay = ((rx[:, None] + tx[None, :]) / sos).astype(np.float32)
+    out = np.empty((c, len(fv), s), np.float32)
+    t = (np.arange(s) / fs).astype(np.float32)
+    for a in range(len(fv)):
+        arg = t[None, :] - delay[:, a, None]
+        env = np.exp(-0.5 * (arg / np.float32(2 / f0 / 4)) ** 2)
+        out[:, a] = env * np.cos(np.float32(2 * np.pi * f0) * arg)
+    return out
+
+
+def mesh_tpw(dev, smi_line) -> dict:
+    """plane_wave_2d as RCA_TPW over TPW_ANGLES steered angles (float32
+    256 x 8 x 4096 -> 512 x 1024) on make_mesh_tx(2, 4) over cuda:0
+    against its unsharded plan."""
+    from ogl_beamforming_tpu_torch import AcquisitionKind
+    from ogl_beamforming_tpu_torch.models import presets
+    from ogl_beamforming_tpu_torch.parallel.sharding import (make_mesh_tx,
+                                                             shard_plan_tx)
+    from ogl_beamforming_tpu_torch.pipeline.plan import build_plan
+
+    params, pipe = presets.plane_wave_2d()
+    a = TPW_ANGLES
+    params.acquisition_kind = AcquisitionKind.RCA_TPW
+    params.acquisition_count = a
+    params.single_focus = 0
+    angles = np.linspace(-8, 8, a).astype(np.float32)
+    fv = np.stack([angles, np.full(a, np.inf, np.float32)], axis=1)
+    # under the aperture (0 .. 51 mm) at 60 mm: voxel (362, 330) of the
+    # -60 .. 60 mm x 10 .. 165 mm grid
+    voxel = (362, 330, 0)
+    rf = synthesize_tpw_frame(params, fv, target_world(params, voxel))
+    plan = build_plan(params, pipe, {}, focal_vectors=fv, device=dev)
+    x = torch.from_numpy(rf).to(dev)
+    splan = shard_plan_tx(plan, make_mesh_tx(2, 4, [dev] * 8))
+    return run_sharded(f"RCA_TPW, {a} angles, on 2 channels x 4 transmits",
+                       splan, plan, x, voxel, ("das_rca",), 8, smi_line)
+
+
+def mesh_worker(rank: int, world: int, port: str, rf_path: str,
+                out_path: str) -> None:
+    """One gloo rank of the two-process check (``python3 chip_smoke.py
+    --mesh-worker RANK WORLD PORT RF OUT``): the Quickstart's plan on
+    cuda:0, this rank's local_channel_slice rows of the frame in ``rf_path``
+    (read from a memory map: no rank reads the other's rows) fed to its
+    position of make_host_mesh (one a rank, both on cuda:0), channels
+    summed by all_reduce; then a channels x slabs mesh whose slab r is rank
+    r's (whole frames), slabs brought together by all_gather.  Rank 0 saves
+    both gathered frames to ``out_path``."""
+    from ogl_beamforming_tpu_torch.kernels import build
+    from ogl_beamforming_tpu_torch.parallel import multihost, sharding
+    from ogl_beamforming_tpu_torch.pipeline.plan import build_plan
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    multihost.init_multihost(f"localhost:{port}", world, rank,
+                             backend="gloo", timeout=MESH_TIMEOUT)
+    try:
+        params, pipe, _ = quickstart_parameters()
+        plan = build_plan(params, pipe, {}, device=dev)
+        rf = np.load(rf_path, mmap_mode="r")
+        local = np.array(rf[multihost.local_channel_slice(rf.shape[0])])
+        mesh = multihost.make_host_mesh(devices=[dev])
+        splan = sharding.shard_plan(plan, mesh)
+        splan(multihost.feed_rf(local, mesh))
+        torch.cuda.synchronize()
+        build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        for _ in range(RUNS):
+            out = splan(multihost.feed_rf(local, mesh))
+            frame = multihost.gathered_frame(out)
+        wall = (time.perf_counter() - t0) * 1e3 / RUNS
+        launches = dict(build.LAUNCHES)
+
+        whole = torch.from_numpy(np.array(rf)).to(dev)
+        grid = [(r, dev) for r in range(world)]
+        slabs = sharding.Mesh(sharding.positions_array(grid, (1, world)),
+                              (sharding.CHANNEL_AXIS, sharding.SLAB_AXIS),
+                              dist.group.WORLD)
+        splan2 = sharding.shard_plan_2d(plan, slabs)
+        check(splan2.gathers_slabs, "the slab mesh does not take all_gather")
+        slab_frame = multihost.gathered_frame(splan2(whole))
+        print(f"[mesh rank {rank}] {local.shape[0]} channel rows fed; "
+              f"launches over {RUNS} frames {launches}; {wall:.3f} ms/frame "
+              f"(host clock, feed to gathered frame, gloo all_reduce on "
+              f"CUDA tensors)", flush=True)
+        if rank == 0:
+            np.savez(out_path, channels=frame, slabs=slab_frame)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_ranks(dev, smi_line) -> None:
+    """Two gloo ranks of this script on cuda:0 (MESH_WORKER), joined under
+    MESH_TIMEOUT and killed if they outlive it; each frame rank 0 gathers
+    against the single-process unsharded frame (NRMSE 1e-5), its peak
+    within one voxel."""
+    import socket
+    import tempfile
+
+    from ogl_beamforming_tpu_torch.pipeline.plan import build_plan
+
+    params, pipe, raw, voxel = quickstart()
+    c, a, s = params.channel_count, params.acquisition_count, \
+        params.sample_count
+    rf = raw.reshape(c, a, s)
+    ref = build_plan(params, pipe, {}, device=dev)(
+        torch.from_numpy(rf).to(dev)).cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp, socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = str(sock.getsockname()[1])
+        sock.close()
+        rf_path, out_path = f"{tmp}/rf.npy", f"{tmp}/out.npz"
+        np.save(rf_path, rf)
+        procs = [subprocess.Popen(
+            [sys.executable, __file__, MESH_WORKER, str(r), "2", port,
+             rf_path, out_path], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=MESH_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, o) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0,
+                  f"mesh rank {r} exited {p.returncode}:\n{o[-4000:]}")
+            print(o.strip())
+        got = np.load(out_path)
+        for name in ("channels", "slabs"):
+            err = nrmse(ref, got[name])
+            check(err <= 1e-5, f"two ranks ({name}): NRMSE {err:.3e} > 1e-5")
+            peak = peak_check(f"two ranks ({name})", got[name], voxel)
+            print(f"[mesh] two gloo ranks on {dev} ({name}): rank 0's "
+                  f"gathered frame against the single-process unsharded "
+                  f"frame NRMSE {err:.3e}, peak {peak}; {smi_line}")
+
+
+def mesh_entry_points(dev) -> dict:
+    """entry.dryrun_multichip(8) and (3) on cuda:0, then the multihost
+    feeders example (single host, full width) in a subprocess."""
+    from ogl_beamforming_tpu_torch import entry
+    from ogl_beamforming_tpu_torch.kernels import build
+    build.LAUNCHES.clear()
+    entry.dryrun_multichip(8)
+    entry.dryrun_multichip(3)
+    launches = dict(build.LAUNCHES)
+    want = {"decode_hadamard": 8 + 3, "das_forces": 8 + 3, "das_rca": 8}
+    check(launches == want, f"dryrun_multichip: launches {launches}")
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "ogl_beamforming_tpu_torch.examples.multihost_feeders",
+         "--frames", "2"], capture_output=True, text=True,
+        timeout=MESH_TIMEOUT)
+    check(proc.returncode == 0 and "frame 1:" in proc.stdout,
+          f"multihost_feeders exited {proc.returncode}:\n"
+          f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    print(f"[mesh] dryrun_multichip(8) and (3) on {dev}: launches "
+          f"{launches}; multihost_feeders --frames 2: "
+          + "; ".join(proc.stdout.strip().splitlines()))
+    return launches
+
+
+def phase_mesh(dev, smi_line) -> dict:
+    """Phase 12; returns its kernel launches by table row."""
+    t0 = time.perf_counter()
+    quick = mesh_quickstart(dev, smi_line)
+    path_d = mesh_path_d(dev, smi_line)
+    tpw = mesh_tpw(dev, smi_line)
+    mesh_ranks(dev, smi_line)
+    entry_launches = mesh_entry_points(dev)
+    counts = {
+        "decode_hadamard": quick["decode_hadamard"]
+        + path_d["decode_hadamard"] + entry_launches["decode_hadamard"],
+        "das_forces": quick["das_forces"] + entry_launches["das_forces"],
+        "das_forces_coh3d": path_d["das_forces"],
+        "das_rca": tpw["das_rca"] + entry_launches["das_rca"]}
+    print(f"[mesh] phase 12 launches by table row {counts} (the two ranks' "
+          f"and the example's are their processes'); phase took "
+          f"{time.perf_counter() - t0:.1f} s; one card: its positions run "
+          f"one after another")
+    return counts
+
+
 def print_lost(phases: str, caught: list) -> None:
     """The traces of ``phases`` that lack a kernel event their call launched
     (utils/profiling.device_time warns of each, naming the kernel and the
@@ -3585,6 +3985,9 @@ def main() -> None:
         check(row["launches"] > 0, f"{row['name']} never launched on its path")
         row["phase10_launches"] = zbp_launches.get(row["name"], 0)
     phase_tune(dev, smi_line)
+    mesh_launches = phase_mesh(dev, smi_line)
+    for row in rows:
+        row["phase12_launches"] = mesh_launches.get(row["name"], 0)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -3592,4 +3995,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [MESH_WORKER]:
+        mesh_worker(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
+    else:
+        main()

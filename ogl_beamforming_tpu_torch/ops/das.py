@@ -52,11 +52,20 @@ class DasStatic:
     global_points: tuple[int, int, int] | None = None
     """Full output grid when this call computes a slab of it starting at
     ``dyn["x_offset"]``: voxel coordinates use its denominators."""
+    grid_channels: int = 0
+    """The channels this call beamforms when they are a shard of
+    ``channel_count`` (``parallel/sharding.py``), starting at
+    ``dyn["channel_offset"]``; ``channel_count`` stays global, because the
+    element geometry needs it."""
     frame_batch: int = 1
 
     @property
     def family(self) -> str:
         return self.acquisition_kind.das_family
+
+    @property
+    def local_channels(self) -> int:
+        return self.grid_channels or self.channel_count
 
 
 def make_dynamic(p: DasParams, device) -> dict:

@@ -176,11 +176,11 @@ def sorted_transmits(st: DasStatic, dyn: dict):
 
 def _tune_key(st: DasStatic) -> tuple:
     """The key of ``st``'s entry in :data:`TUNED`: ``das_pallas._tune_key``'s
-    tuple (the JAX package's ``local_channels`` is the channel count: the
-    port shards no channels), with ``("fb", B)`` appended only for a frame
-    batch."""
+    tuple, whose channels are the launch's own (``st.local_channels``: a
+    channel shard's count, the whole count for an unsharded plan), with
+    ``("fb", B)`` appended only for a frame batch."""
     key = (st.family, int(st.interpolation_mode), st.iq,
-           st.acquisition_count, st.channel_count, st.sample_count,
+           st.acquisition_count, st.local_channels, st.sample_count,
            tuple(st.output_points))
     if st.frame_batch > 1:
         key = key + (("fb", st.frame_batch),)

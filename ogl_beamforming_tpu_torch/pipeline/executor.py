@@ -12,6 +12,8 @@ path does both in turn, the streaming session (``runtime/streaming.py``)
 reads frame n's times while frame n + 1 runs.
 :meth:`Beamformer.push_batch` beamforms B frames per call through a batched
 plan, and :meth:`Beamformer.averaged_frame` averages the newest frames.
+With ``mesh=`` every plan runs channel-sharded over the mesh's positions
+(``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -102,6 +104,7 @@ class _StageClock:
     clock on the CPU (where every torch op has finished when it returns)."""
 
     def __init__(self, device: torch.device):
+        self.device = device
         self.cuda = device.type == "cuda"
         self.marks: list = []
         self.mark()
@@ -109,7 +112,7 @@ class _StageClock:
     def mark(self):
         if self.cuda:
             event = torch.cuda.Event(enable_timing=True)
-            event.record()
+            event.record(torch.cuda.current_stream(self.device))
             self.marks.append(event)
         else:
             self.marks.append(time.perf_counter())
@@ -127,6 +130,16 @@ class _StageClock:
         return [b - a for a, b in zip(m, m[1:])]
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether ``a`` and ``b`` name one device (``cuda`` is the current
+    CUDA device)."""
+    def index(d):
+        if d.type == "cuda" and d.index is None:
+            return torch.cuda.current_device()
+        return d.index or 0
+    return a.type == b.type and index(a) == index(b)
+
+
 class Beamformer:
     """A beamforming session on one device: the user-facing API.
 
@@ -135,11 +148,19 @@ class Beamformer:
     each ``*_at`` variant of the reference maps to the ``block=`` keyword.
     It runs on the GPU (``device="cuda"``, the default) with the CUDA kernels
     and raises ``RuntimeError`` when no GPU is available; it never falls
-    back to the CPU.  ``device="cpu"`` runs the plain twins.
+    back to the CPU.  ``device="cpu"`` runs the plain twins.  ``mesh``: a
+    ``parallel.sharding.Mesh`` over which every plan runs channel-sharded
+    (its channel count must divide the mesh's channel axis); ``device``
+    must be the mesh's first position of this process, where frames land.
     """
 
-    def __init__(self, device="cuda", backlog_bytes: int = 1 << 30):
+    def __init__(self, device="cuda", backlog_bytes: int = 1 << 30,
+                 mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None and not _same_device(mesh.home(), self.device):
+            raise ValueError(f"device {self.device} is not the mesh's first "
+                             f"position of this process ({mesh.home()})")
         self._blocks: list[ParameterBlock] = [ParameterBlock()]
         self._reserved = 1
         self._backlog: list[Frame] = []
@@ -246,6 +267,9 @@ class Beamformer:
                                       "no pipeline pushed")
             b._batched_plans.clear()
             b._plan = self._build_plan(b)
+            if self.mesh is not None:
+                from ..parallel.sharding import shard_plan
+                b._plan = shard_plan(b._plan, self.mesh)
             self.stats.set_stages([sd.kind for sd in b._plan.descriptor.stages])
             b.dirty = False
         return b._plan
@@ -319,10 +343,14 @@ class Beamformer:
         four frames per launch, sharing each pair's geometry across them;
         for offline datasets and frame averaging (:meth:`averaged_frame`).
         Returns one :class:`Frame` per input frame, all in the backlog; the
-        stats table gets B rows, each the batch's stage times over B."""
+        stats table gets B rows, each the batch's stage times over B.  Not
+        with a device mesh (shard the channel axis or batch, not both)."""
         if not (0 <= image_plane_tag < len(ViewPlaneTag)):
             raise BeamformerError(ErrorKind.InvalidImagePlane,
                                   str(image_plane_tag))
+        if self.mesh is not None:
+            raise BeamformerError(ErrorKind.InvalidComputeStage,
+                                  "push_batch with a device mesh")
         data = np.asarray(data)
         if data.ndim != 3 or data.shape[0] < 1:
             raise BeamformerError(ErrorKind.DataSizeMismatch,
@@ -383,8 +411,9 @@ class Beamformer:
 
     def _enqueue(self, plan: CompiledPlan, x: torch.Tensor,
                  image_plane_tag) -> tuple[Frame, _StageClock]:
-        """Run ``plan`` on canonical RF ``x`` on the device and register the
-        frame; on the GPU it returns once the stages are enqueued.  The
+        """Run ``plan`` on canonical RF ``x`` on the device (a sharded plan
+        takes the whole frame and splits it over its positions) and register
+        the frame; on the GPU it returns once the stages are enqueued.  The
         clock's times go into the stats table through :meth:`_finish`."""
         clock = _StageClock(self.device)
         out = plan(x, mark=clock.mark)

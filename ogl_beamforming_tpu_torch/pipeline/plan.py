@@ -271,29 +271,33 @@ def _stage_parameter(pipeline: PipelineSpec, kind: ShaderKind, index,
     raise KeyError(kind)
 
 
-def compose_stages(desc: PlanDescriptor, rf: torch.Tensor, dyn: dict,
-                   mark=None):
-    """Run the stages of ``desc`` on ``rf`` (canonical (C, A, S_wire) raw
-    data on the plan's device, or (B, C, A, S_wire) for a batch of
-    ``desc.frame_batch = B > 1``).  ``mark``, when given, is called after
-    each stage (the executor's per-stage clock).  Returns the (nx, ny, nz)
-    frame (or (B, nx, ny, nz) frames), with coherency weighting already
-    applied as part of the DAS stage, or the last stage's output for a
-    pipeline without DAS."""
-    x = rf
+def _wire_samples(desc: PlanDescriptor, rf: torch.Tensor) -> torch.Tensor:
+    """Interleaved scalar pairs -> complex64 (I, Q adjacent samples) for all
+    complex wire kinds (reference: shaders/reshape.glsl:30-82); real wire
+    data as it is."""
+    if not desc.data_kind.is_complex:
+        return rf
+    x = rf.to(torch.float32)
+    return torch.complex(x[..., 0::2], x[..., 1::2])
+
+
+def stage_steps(desc: PlanDescriptor, rf: torch.Tensor, dyn: dict,
+                skip_coherency_normalize: bool = False):
+    """The stages of ``desc`` on ``rf`` one at a time: a generator that
+    yields once after each stage what the frame is then (a batch as
+    (B, ...)), and after the DAS stage the volume, or the ``(coherent,
+    incoherent)`` pair with coherency weighting when
+    ``skip_coherency_normalize`` defers the weighting to the caller (the
+    sharded plans of ``parallel/sharding.py`` weight once, after the sum
+    over channel shards).  The value yielded last is the plan's result."""
+    x = _wire_samples(desc, rf)
     batch = desc.frame_batch
-    if desc.data_kind.is_complex:
-        # Interleaved scalar pairs -> complex64 (I, Q adjacent samples) for
-        # all complex wire kinds (reference: shaders/reshape.glsl:30-82).
-        x = x.to(torch.float32)
-        x = torch.complex(x[..., 0::2], x[..., 1::2])
     if batch > 1:
         # Decode mixes acquisitions of one channel and Demodulate, Filter
         # and Hilbert act along the samples of one (channel, acquisition)
         # row, so a batch runs through the pre-DAS kernels as B * C
         # channels of one frame: no batched kernel is needed before DAS.
         x = x.reshape((batch * x.shape[1],) + tuple(x.shape[2:]))
-    out = None
     for i, sd in enumerate(desc.stages):
         if sd.kind == ShaderKind.Decode:
             x = decode_hadamard(x, dyn[f"hadamard{i}"])
@@ -310,10 +314,24 @@ def compose_stages(desc: PlanDescriptor, rf: torch.Tensor, dyn: dict,
             if batch > 1:
                 rf_das = rf_das.reshape((batch, -1) + tuple(x.shape[1:]))
             out = das_ops.das(rf_das.contiguous(), dyn["das"], sd.das)
-            if desc.coherency_weighting:
+            if desc.coherency_weighting and not skip_coherency_normalize:
                 out = coherency_weighting(*out)
+            yield out
+            continue
+        yield x.reshape((batch, -1) + tuple(x.shape[1:])) if batch > 1 else x
+
+
+def compose_stages(desc: PlanDescriptor, rf: torch.Tensor, dyn: dict,
+                   mark=None):
+    """Run the stages of ``desc`` on ``rf`` (canonical (C, A, S_wire) raw
+    data on the plan's device, or (B, C, A, S_wire) for a batch of
+    ``desc.frame_batch = B > 1``).  ``mark``, when given, is called after
+    each stage (the executor's per-stage clock).  Returns the (nx, ny, nz)
+    frame (or (B, nx, ny, nz) frames), with coherency weighting already
+    applied as part of the DAS stage, or the last stage's output for a
+    pipeline without DAS."""
+    out = None
+    for out in stage_steps(desc, rf, dyn):
         if mark is not None:
             mark()
-    if out is None:
-        return x.reshape((batch, -1) + tuple(x.shape[1:])) if batch > 1 else x
-    return out
+    return out if desc.stages else _wire_samples(desc, rf)

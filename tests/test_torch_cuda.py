@@ -1530,3 +1530,178 @@ def test_pretune_inputs_on_the_card(dev, dtype):
     st = das.make_static(p, iq=dtype == torch.complex64)
     rf = pretune.das_input(st, 1)
     assert rf.shape == (8, 1, 256) and rf.is_cuda
+
+
+# ---------------------------------------------------------------------------
+# Sharded plans (parallel/sharding.py) on virtual meshes of cuda:0
+# ---------------------------------------------------------------------------
+
+def _mesh_case(family, coherency, a=8):
+    """A reduced configuration of ``family`` (FORCES and HERCULES with
+    Decode; RCA: plane-wave Flash, or TPW over ``a`` steered angles when
+    ``a > 1``, decode-free) with ``coherency``, its focal vectors and a raw
+    (C, A, S) frame made from a seed."""
+    fv = None
+    if family == "forces":
+        p, pipe = presets.forces_compounding(
+            channel_count=16, transmit_count=8, sample_count=2048,
+            output_points=(16, 24), demodulate=False)
+    elif family == "hercules":
+        p, pipe = presets.hercules_3d(channel_count=16, acquisition_count=16,
+                                      sample_count=1024,
+                                      output_points=(8, 6, 10))
+    else:
+        p, pipe = presets.plane_wave_2d(
+            channel_count=16, sample_count=1024, output_points=(16, 24),
+            lateral_mm=(-1.0, 4.0), axial_mm=(5.0, 15.0))
+        if a > 1:
+            angles = np.linspace(-8, 8, a).astype(np.float32)
+            fv = np.stack([angles, np.full(a, np.inf, np.float32)], axis=1)
+            p.acquisition_kind = AcquisitionKind.RCA_TPW
+            p.acquisition_count = a
+            p.single_focus = 0
+    p.coherency_weighting = coherency
+    rng = np.random.default_rng(0x5EED)
+    shape = (p.channel_count, p.acquisition_count, p.sample_count)
+    rf = (rng.integers(-1024, 1024, shape).astype(np.int16)
+          if pipe.data_kind == DataKind.Int16
+          else rng.standard_normal(shape).astype(np.float32))
+    return p, pipe, fv, rf
+
+
+def _sharded_against_unsharded(dev, p, pipe, fv, rf, splan_of, shards):
+    """The sharded plan's frame against the unsharded plan's (NRMSE 1e-5),
+    each shard launching the DAS kernel (and the decode kernel, where the
+    plan decodes) once."""
+    from ogl_beamforming_tpu_torch.pipeline.plan import build_plan
+    plan = build_plan(p, pipe, {}, device=dev, focal_vectors=fv)
+    x = torch.from_numpy(rf).to(dev)
+    ref = plan(x)
+    splan = splan_of(plan)
+    st = next(sd.das for sd in plan.descriptor.stages if sd.das)
+    names = [das_cuda.launch_name(st)] + (
+        ["decode_hadamard"] if any(sd.kind == ShaderKind.Decode
+                                   for sd in plan.descriptor.stages) else [])
+    before = {k: build.LAUNCHES[k] for k in names}
+    out = splan(x)
+    assert {k: build.LAUNCHES[k] - before[k] for k in names} == \
+        {k: shards for k in names}
+    assert out.shape == ref.shape and out.is_cuda
+    assert float(ref.abs().max()) > 0
+    assert nrmse(ref.cpu().numpy(), out.cpu().numpy()) <= 1e-5
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("coherency", [False, True])
+@pytest.mark.parametrize("family", ["forces", "hercules", "rca"])
+def test_sharded_plan_matches_unsharded(dev, family, coherency, n):
+    from ogl_beamforming_tpu_torch.parallel import sharding
+    p, pipe, fv, rf = _mesh_case(family, coherency, a=1)
+    _sharded_against_unsharded(
+        dev, p, pipe, fv, rf,
+        lambda plan: sharding.shard_plan(plan,
+                                         sharding.make_mesh([dev] * n)), n)
+
+
+@pytest.mark.parametrize("coherency", [False, True])
+def test_sharded_2d_plan_matches_unsharded(dev, coherency):
+    from ogl_beamforming_tpu_torch.parallel import sharding
+    p, pipe, fv, rf = _mesh_case("forces", coherency)
+    _sharded_against_unsharded(
+        dev, p, pipe, fv, rf,
+        lambda plan: sharding.shard_plan_2d(
+            plan, sharding.make_mesh_2d(2, 2, [dev] * 4)), 4)
+
+
+@pytest.mark.parametrize("coherency", [False, True])
+def test_sharded_tx_plan_matches_unsharded(dev, coherency):
+    from ogl_beamforming_tpu_torch.parallel import sharding
+    p, pipe, fv, rf = _mesh_case("rca", coherency, a=8)
+    _sharded_against_unsharded(
+        dev, p, pipe, fv, rf,
+        lambda plan: sharding.shard_plan_tx(
+            plan, sharding.make_mesh_tx(2, 4, [dev] * 8)), 8)
+
+
+# Sharded plans on meshes of distinct cards (skipped on a one-card machine):
+# each position's kernels launch on its own card while cuda:0 is current.
+
+@pytest.fixture
+def cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA GPUs or more")
+    n = torch.cuda.device_count()
+    n = 4 if n >= 4 else 2           # a power of two dividing 16 channels
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+@pytest.mark.parametrize("coherency", [False, True])
+@pytest.mark.parametrize("family", ["forces", "hercules", "rca"])
+def test_sharded_plan_across_cards_matches_unsharded(cards, family,
+                                                     coherency):
+    from ogl_beamforming_tpu_torch.parallel import sharding
+    p, pipe, fv, rf = _mesh_case(family, coherency, a=1)
+    _sharded_against_unsharded(
+        cards[0], p, pipe, fv, rf,
+        lambda plan: sharding.shard_plan(plan, sharding.make_mesh(cards)),
+        len(cards))
+
+
+def test_sharded_2d_and_tx_plans_across_cards(cards):
+    from ogl_beamforming_tpu_torch.parallel import sharding
+    if len(cards) < 4:
+        pytest.skip("needs four CUDA GPUs")
+    p, pipe, fv, rf = _mesh_case("forces", True)
+    _sharded_against_unsharded(
+        cards[0], p, pipe, fv, rf,
+        lambda plan: sharding.shard_plan_2d(
+            plan, sharding.make_mesh_2d(2, 2, cards)), 4)
+    p, pipe, fv, rf = _mesh_case("rca", True, a=8)
+    _sharded_against_unsharded(
+        cards[0], p, pipe, fv, rf,
+        lambda plan: sharding.shard_plan_tx(
+            plan, sharding.make_mesh_tx(2, 2, cards)), 4)
+
+
+def test_beamformer_mesh_across_cards_times_every_card(cards, monkeypatch):
+    """``Beamformer(mesh=make_mesh(cards))`` against the unsharded
+    Beamformer on the same frame (NRMSE 1e-5), and its stats row's Decode
+    stage spanning every card's decode: with a sleep kernel queued on the
+    last card just before its decode, the Decode stage lasts at least half
+    the sleep (the first card's stream waits for the others at each
+    stage's end; without that wait the sleep would fall in the DAS stage,
+    where the partial volumes are copied to the first card)."""
+    from ogl_beamforming_tpu_torch.params.constants import STATS_FRAME_WINDOW
+    from ogl_beamforming_tpu_torch.parallel import sharding
+    from ogl_beamforming_tpu_torch.pipeline import plan as plan_mod
+    from ogl_beamforming_tpu_torch.utils.device import event_seconds
+    p, pipe, fv, rf = _mesh_case("forces", False)
+    raw = rf.reshape(rf.shape[0], -1)
+
+    def session(**kw):
+        bf = Beamformer(device=cards[0], **kw)
+        bf.push_parameters(p)
+        bf.push_pipeline(pipe.shaders, pipe.data_kind)
+        return bf
+
+    ref = session().push_data_with_compute(raw).to_numpy()
+    bf = session(mesh=sharding.make_mesh(cards))
+    assert nrmse(ref, bf.push_data_with_compute(raw).to_numpy()) <= 1e-5
+
+    cycles = 100_000_000
+    with torch.cuda.device(cards[-1]):
+        sleep_ms = 1e3 * event_seconds(lambda: torch.cuda._sleep(cycles),
+                                       1, 1)
+    decode = plan_mod.decode_hadamard
+
+    def late_decode(x, h):
+        if x.device == cards[-1]:
+            torch.cuda._sleep(cycles)
+        return decode(x, h)
+
+    monkeypatch.setattr(plan_mod, "decode_hadamard", late_decode)
+    out = bf.push_data_with_compute(raw).to_numpy()
+    assert nrmse(ref, out) <= 1e-5
+    row = (bf.stats._frame_index - 1) % STATS_FRAME_WINDOW
+    decode_ms = bf.compute_timings().times[row, 0] * 1e3
+    assert decode_ms >= 0.5 * sleep_ms > 0

@@ -573,13 +573,16 @@ def test_port_imports_no_jax():
         "        'ogl_beamforming_tpu_torch.viewer_xplane',\n"
         "        'ogl_beamforming_tpu_torch.viewer_web',\n"
         "        'ogl_beamforming_tpu_torch.entry',\n"
-        "        'ogl_beamforming_tpu_torch.pretune'} | {\n"
+        "        'ogl_beamforming_tpu_torch.pretune',\n"
+        "        'ogl_beamforming_tpu_torch.parallel.sharding',\n"
+        "        'ogl_beamforming_tpu_torch.parallel.multihost'} | {\n"
         "    'ogl_beamforming_tpu_torch.examples.' + n for n in (\n"
         "        'throughput', 'decode_sweep', 'point_scatterer',\n"
-        "        'live_streaming')} | {\n"
+        "        'live_streaming', 'multihost_feeders')} | {\n"
         "    'ogl_beamforming_tpu_torch.experiments.' + n for n in (\n"
         "        'gather_micro', 'gather_micro2', 'gather_micro3',\n"
-        "        'onehot_micro', 'onehot_micro2', 'probe_i8', 'probe_i8b')}\n"
+        "        'onehot_micro', 'onehot_micro2', 'probe_i8', 'probe_i8b',\n"
+        "        'mesh_sweep')}\n"
         "assert want <= names, want - names\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "bad = [m for m in sys.modules if m == 'ogl_beamforming_tpu'\n"
