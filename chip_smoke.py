@@ -40,7 +40,8 @@ line:
               table (and a complex chirp at D = 2)
               and FIR complex64 (128, 128, 2048) with real and complex taps
               to NRMSE 1e-6; CUDA-event times of the kernel (median and
-              interquartile range of 21 runs), its twin (median of 5) and,
+              interquartile range of 21 runs), its twin (median of 5; a
+              DAS twin in one block of the whole grid) and,
               where one PyTorch call computes the same function, that call
               (median of 21); and each kernel's bound from its bytes and
               operations; for demodulate and FIR also the kernel's time
@@ -258,6 +259,23 @@ line:
               Prints device ms/frame sharded and unsharded with the card's
               name and power limit.  The phase's launches go onto the
               kernel table's rows as ``phase12_launches``.
+ 13. api      the JAX package's remaining public API at the Quickstart's
+              full width (int16 128 x 128 x 4096 -> Decode -> FORCES DAS
+              onto 512 x 1024): compiled_stage_fns chained,
+              compose_stages, Beamformer.push_data_with_compute and a
+              das_backend="cuda" plan bit-equal to the das_backend="auto"
+              plan, four launches of K2 and of K1;
+              Beamformer(voxel_block=4096, profile=True,
+              stage_timing="device") the same frame with its stats row
+              filled; path A with das_backend="xla" (the plain twin on the
+              card) within 1e-4 of K1 and launching no K1; the 8-angle
+              TPW of phase 12 placed by shard_rf_tx on 2 channels x 4
+              transmits within 1e-6 of the unsharded frame; with two cards
+              or more, the Quickstart plan built and run on cuda:1 while
+              cuda:0 is current bit-equal to cuda:0's frame, both cards
+              synchronized (with one card a line says the check needs
+              two).  The phase's launches go onto the kernel table's rows
+              as ``phase13_launches``.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -569,6 +587,15 @@ def walk_times(rf, dyn, st):
     return out
 
 
+def whole_grid(st):
+    """``st`` with the plain twin computing the whole grid in one block
+    (``voxel_block``, which the kernel ignores): the twin's fastest on the
+    card, and how it ran before it took blocks."""
+    import dataclasses
+    return dataclasses.replace(
+        st, voxel_block=int(np.prod(st.global_points or st.output_points)))
+
+
 def das_row(name, label, rf, dyn, st, ops_per_pair,
             ops_per_triple=None) -> dict:
     """The DAS kernel against its twin on ``rf`` (each output, coherent and
@@ -582,14 +609,15 @@ def das_row(name, label, rf, dyn, st, ops_per_pair,
     from ogl_beamforming_tpu_torch.ops import das_cuda
     outs_k = das_cuda.das_cuda(rf, dyn, st)
     t0 = time.perf_counter()
-    outs_p = das_ops.das_ref(rf, dyn, st)
+    outs_p = das_ops.das_ref(rf, dyn, whole_grid(st))
     if not isinstance(outs_k, tuple):
         outs_k, outs_p = (outs_k,), (outs_p,)
     err = max(compare(k, p, 1e-4, f"{label} DAS output {i}")
               for i, (k, p) in enumerate(zip(outs_k, outs_p)))
     worst = max(nrmse(p.cpu().numpy(), k.cpu().numpy())
                 for k, p in zip(outs_k, outs_p))
-    plain_ms = median_ms(lambda: das_ops.das_ref(rf, dyn, st), RUNS)
+    plain_ms = median_ms(lambda: das_ops.das_ref(rf, dyn, whole_grid(st)),
+                         RUNS)
     twin_s = time.perf_counter() - t0
     ms, iqr = kernel_ms(lambda: das_cuda.das_cuda(rf, dyn, st))
     out_bytes = sum(k.numel() * k.element_size() for k in outs_k)
@@ -985,14 +1013,15 @@ def phase_kernels_volumes(dev) -> list[dict]:
     check(equal, "four-frame RCA launch != single-frame launches bit for bit")
     fb_err = max(compare(out4[b], ones[b], 1e-6, f"four-frame RCA frame {b}")
                  for b in range(FRAME_BATCH))
-    twin = das_ops.das_ref(rf, dyn, st4)
+    twin = das_ops.das_ref(rf, dyn, whole_grid(st4))
     err = compare(out4, twin, 1e-4, "four-frame RCA vs twin")
     worst = nrmse(twin.cpu().numpy(), out4.cpu().numpy())
     ms, iqr = kernel_ms(lambda: das_cuda.das_cuda(rf, dyn, st4))
     ones_ms, ones_iqr = kernel_ms(
         lambda: [das_cuda.das_cuda(rf[b], dyn, st1)
                  for b in range(FRAME_BATCH)])
-    plain_ms = median_ms(lambda: das_ops.das_ref(rf, dyn, st4), RUNS)
+    plain_ms = median_ms(lambda: das_ops.das_ref(rf, dyn, whole_grid(st4)),
+                         RUNS)
     pairs, _ = active_pairs(st1, dyn)
     print(f"[kernels] DAS RCA Flash cubic IQ, {FRAME_BATCH} frames in one "
           f"launch {tuple(shape)} -> {st1.output_points}: vs single-frame "
@@ -3754,15 +3783,12 @@ def synthesize_tpw_frame(params, fv, target) -> np.ndarray:
     return out
 
 
-def mesh_tpw(dev, smi_line) -> dict:
-    """plane_wave_2d as RCA_TPW over TPW_ANGLES steered angles (float32
-    256 x 8 x 4096 -> 512 x 1024) on make_mesh_tx(2, 4) over cuda:0
-    against its unsharded plan."""
+def tpw_case():
+    """plane_wave_2d as RCA_TPW over TPW_ANGLES steered angles: its
+    parameters, pipeline, focal vectors, the target's voxel and the
+    float32 (256, 8, 4096) point-target frame."""
     from ogl_beamforming_tpu_torch import AcquisitionKind
     from ogl_beamforming_tpu_torch.models import presets
-    from ogl_beamforming_tpu_torch.parallel.sharding import (make_mesh_tx,
-                                                             shard_plan_tx)
-    from ogl_beamforming_tpu_torch.pipeline.plan import build_plan
 
     params, pipe = presets.plane_wave_2d()
     a = TPW_ANGLES
@@ -3775,6 +3801,19 @@ def mesh_tpw(dev, smi_line) -> dict:
     # -60 .. 60 mm x 10 .. 165 mm grid
     voxel = (362, 330, 0)
     rf = synthesize_tpw_frame(params, fv, target_world(params, voxel))
+    return params, pipe, fv, voxel, rf
+
+
+def mesh_tpw(dev, smi_line) -> dict:
+    """plane_wave_2d as RCA_TPW over TPW_ANGLES steered angles (float32
+    256 x 8 x 4096 -> 512 x 1024) on make_mesh_tx(2, 4) over cuda:0
+    against its unsharded plan."""
+    from ogl_beamforming_tpu_torch.parallel.sharding import (make_mesh_tx,
+                                                             shard_plan_tx)
+    from ogl_beamforming_tpu_torch.pipeline.plan import build_plan
+
+    params, pipe, fv, voxel, rf = tpw_case()
+    a = TPW_ANGLES
     plan = build_plan(params, pipe, {}, focal_vectors=fv, device=dev)
     x = torch.from_numpy(rf).to(dev)
     splan = shard_plan_tx(plan, make_mesh_tx(2, 4, [dev] * 8))
@@ -3929,6 +3968,202 @@ def phase_mesh(dev, smi_line) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: api.  The JAX package's remaining public API on the port at the
+# Quickstart's full width (pipeline/plan.py's compiled_stage_fns and
+# das_backend, the executor's voxel_block, profile and stage_timing,
+# parallel/sharding.py's shard_rf_tx), and a plan on a card that is not the
+# current one (roadmap C3) where the machine has two.
+# ---------------------------------------------------------------------------
+
+def prepared(bf, raw) -> torch.Tensor:
+    """``raw`` as ``bf``'s block 0 prepares it (mapping, contrast), on its
+    device: the canonical (C, A, S_wire) frame a plan takes."""
+    from ogl_beamforming_tpu_torch.pipeline.executor import Beamformer
+    return torch.from_numpy(Beamformer._prepare(bf._blocks[0], raw)).to(
+        bf.device)
+
+
+def api_quickstart(dev, smi_line) -> dict:
+    """The Quickstart through ``compiled_stage_fns`` chained,
+    ``compose_stages``, ``Beamformer.push_data_with_compute`` and a plan
+    built with ``das_backend="cuda"`` (every frame bit for bit the
+    ``das_backend="auto"`` plan's), then ``Beamformer(voxel_block=4096,
+    profile=True, stage_timing="device")`` (the same frame, its stats row
+    filled).  Returns the frame and the prepared raw frame."""
+    from ogl_beamforming_tpu_torch.pipeline.executor import Beamformer
+    from ogl_beamforming_tpu_torch.pipeline.plan import (build_plan,
+                                                         compiled_stage_fns,
+                                                         compose_stages)
+    params, pipe, raw, voxel = quickstart()
+    bf = beamformer(dev, params, pipe.shaders, pipe.data_kind)
+    bf.warmup()
+    x = prepared(bf, raw)
+    kernels = ("decode_hadamard", "das_forces")
+    auto = build_plan(params, pipe, {}, device=dev)
+    cuda = build_plan(params, pipe, {}, das_backend="cuda", device=dev)
+    fns = compiled_stage_fns(auto.descriptor)
+    torch.cuda.synchronize()
+    launches_before = launches_since_clear(kernels)
+    composed = compose_stages(auto.descriptor, x, auto.dyn)
+    chained = _chain(fns, x, auto.dyn)
+    pushed = bf.push_data_with_compute(raw).data
+    by_cuda = cuda(x)
+    launches = {k: n - launches_before[k]
+                for k, n in launches_since_clear(kernels).items()}
+    check(launches == {k: 4 for k in kernels},
+          f"api: launches {launches} != 4 of each kernel (every route "
+          f"through K2 and K1)")
+    check(torch.equal(chained, composed),
+          "api: compiled_stage_fns chained != compose_stages")
+    check(torch.equal(pushed, composed),
+          "api: push_data_with_compute != compose_stages")
+    check(torch.equal(by_cuda, composed),
+          "api: das_backend='cuda' != das_backend='auto'")
+    peak = peak_check("api quickstart", composed.cpu().numpy(), voxel)
+    chained_ms = median_ms(lambda: _chain(fns, x, auto.dyn), RUNS)
+    composed_ms = median_ms(lambda: compose_stages(auto.descriptor, x,
+                                                   auto.dyn), RUNS)
+
+    prof = Beamformer(device=dev, voxel_block=4096, profile=True,
+                      stage_timing="device")
+    prof.push_parameters(params)
+    prof.push_pipeline(pipe.shaders, pipe.data_kind)
+    out = prof.push_data_with_compute(raw).data
+    check(torch.equal(out, composed),
+          "api: Beamformer(voxel_block=4096, profile=True, "
+          "stage_timing='device') frame != compose_stages")
+    row = prof.compute_timings().times[0][:len(auto.descriptor.stages)]
+    check(bool((row > 0).all()), f"api: profile stats row {row}")
+    print(f"[api] Quickstart (128 x 128 x 4096 int16 -> 512 x 1024): "
+          f"compiled_stage_fns chained, compose_stages, "
+          f"push_data_with_compute and das_backend='cuda' bit-equal to "
+          f"das_backend='auto'; launches {launches}; peak {peak} vs target "
+          f"{voxel}; device ms/frame chained {chained_ms:.3f}, composed "
+          f"{composed_ms:.3f} (median CUDA events over {RUNS}); "
+          f"Beamformer(voxel_block=4096, profile=True, "
+          f"stage_timing='device') the same frame, stats row "
+          f"{' + '.join(f'{t * 1e3:.3f}' for t in row)} ms; {smi_line}")
+    return composed, x
+
+
+def _chain(fns, x, dyn):
+    """``compiled_stage_fns``' callables ``fns`` in turn on ``x``."""
+    for fn in fns:
+        x = fn(x, dyn)
+    return x
+
+
+def api_plain_das(dev, smi_line) -> dict:
+    """Path A with ``das_backend="xla"``: the plain twin on the card, no
+    K1 launch, within the twin bound (NRMSE 1e-4) of K1's frame."""
+    from ogl_beamforming_tpu_torch.pipeline.plan import build_plan
+    params, pipe, raw, voxel = plane_wave()
+    bf = beamformer(dev, params, pipe.shaders, pipe.data_kind)
+    x = prepared(bf, raw)
+    k1 = build_plan(params, pipe, {}, device=dev)
+    plain = build_plan(params, pipe, {}, das_backend="xla", device=dev)
+    st = next(sd.das for sd in plain.descriptor.stages if sd.das)
+    check(st.backend == "torch", f"api: das_backend='xla' ran {st.backend}")
+    ref = k1(x)
+    torch.cuda.synchronize()
+    before = launches_since_clear(("das_rca",))["das_rca"]
+    t0 = time.perf_counter()
+    out = plain(x)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    check(launches_since_clear(("das_rca",))["das_rca"] == before,
+          "api: das_backend='xla' launched K1")
+    err = nrmse(ref.cpu().numpy(), out.cpu().numpy())
+    check(err <= 1e-4, f"api: path A plain twin on the card NRMSE "
+          f"{err:.3e} against K1 > 1e-4")
+    peak = peak_check("api path A plain", out.cpu().numpy(), voxel)
+    k1_ms = median_ms(lambda: k1(x), RUNS)
+    print(f"[api] path A with das_backend='xla' (the plain twin on "
+          f"{dev}, {st.voxel_block} voxels a block): NRMSE {err:.3e} "
+          f"against K1, no K1 launch, peak {peak} vs target {voxel}; "
+          f"{plain_s * 1e3:.1f} ms (host clock, one frame) against K1's "
+          f"{k1_ms:.3f} ms/frame (median CUDA events); {smi_line}")
+
+
+def api_tpw_placed(dev, smi_line) -> dict:
+    """The 8-angle TPW frame placed by ``shard_rf_tx`` on
+    ``make_mesh_tx(2, 4)`` of ``dev`` (each position holds its channel and
+    transmit block only) through ``shard_plan_tx``: within 1e-6 of the
+    unsharded frame."""
+    from ogl_beamforming_tpu_torch.parallel.sharding import (make_mesh_tx,
+                                                             shard_plan_tx,
+                                                             shard_rf_tx)
+    from ogl_beamforming_tpu_torch.pipeline.plan import build_plan
+    params, pipe, fv, voxel, rf = tpw_case()
+    plan = build_plan(params, pipe, {}, focal_vectors=fv, device=dev)
+    x = torch.from_numpy(rf).to(dev)
+    mesh = make_mesh_tx(2, 4, [dev] * 8)
+    ref = plan(x)
+    placed = shard_rf_tx(x, mesh)
+    shapes = {tuple(b.shape) for b in placed.blocks.values()}
+    check(shapes == {(rf.shape[0] // 2, TPW_ANGLES // 4, rf.shape[2])},
+          f"api: shard_rf_tx blocks {shapes}")
+    torch.cuda.synchronize()
+    before = launches_since_clear(("das_rca",))["das_rca"]
+    out = shard_plan_tx(plan, mesh)(placed)
+    launched = launches_since_clear(("das_rca",))["das_rca"] - before
+    check(launched == 8, f"api: shard_rf_tx frame launched K1 {launched} "
+          f"times, not 8")
+    err = nrmse(ref.cpu().numpy(), out.cpu().numpy())
+    check(err <= 1e-6, f"api: shard_rf_tx frame NRMSE {err:.3e} against "
+          f"the unsharded frame > 1e-6")
+    peak = peak_check("api tpw placed", out.cpu().numpy(), voxel)
+    print(f"[api] RCA_TPW, {TPW_ANGLES} angles, placed by shard_rf_tx on 2 "
+          f"channels x 4 transmits of {dev} (blocks {shapes.pop()}): NRMSE "
+          f"{err:.3e} against the unsharded frame, peak {peak} vs target "
+          f"{voxel}; {smi_line}")
+
+
+def api_other_card(x, frame) -> dict:
+    """With two cards or more: the Quickstart's plan built on cuda:1 and
+    run while cuda:0 is current gives cuda:0's frame bit for bit, and both
+    cards synchronize without an error."""
+    from ogl_beamforming_tpu_torch.pipeline.plan import build_plan
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"[api] a plan on cuda:1 while cuda:0 is current needs two "
+              f"cards; this machine has {n}")
+        return
+    params, pipe, _ = quickstart_parameters()
+    other = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        out = build_plan(params, pipe, {}, device=other)(x.to(other))
+        check(torch.cuda.current_device() == 0,
+              "api: the launchers left another card current")
+    torch.cuda.synchronize(0)
+    torch.cuda.synchronize(1)
+    check(out.device == other, f"api: frame on {out.device}")
+    check(torch.equal(out.cpu(), frame.cpu()),
+          "api: the plan on cuda:1 (cuda:0 current) != cuda:0's frame")
+    print(f"[api] the Quickstart plan on cuda:1 while cuda:0 is current: "
+          f"bit-equal to cuda:0's frame, both cards synchronized without "
+          f"an error ({n} cards)")
+
+
+def phase_api(dev, smi_line) -> dict:
+    """Phase 13; returns its kernel launches by table row."""
+    from ogl_beamforming_tpu_torch.kernels import build
+    t0 = time.perf_counter()
+    before = dict(build.LAUNCHES)
+    frame, x = api_quickstart(dev, smi_line)
+    api_plain_das(dev, smi_line)
+    api_tpw_placed(dev, smi_line)
+    api_other_card(x, frame)
+    # the rows of the Quickstart's int16 decode and real FORCES DAS, and of
+    # the RCA IQ DAS (path A and the TPW frames)
+    counts = {k: build.LAUNCHES[k] - before.get(k, 0)
+              for k in ("decode_hadamard", "das_forces", "das_rca")}
+    print(f"[api] phase 13 launches by table row {counts}; phase took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def print_lost(phases: str, caught: list) -> None:
     """The traces of ``phases`` that lack a kernel event their call launched
     (utils/profiling.device_time warns of each, naming the kernel and the
@@ -3986,8 +4221,10 @@ def main() -> None:
         row["phase10_launches"] = zbp_launches.get(row["name"], 0)
     phase_tune(dev, smi_line)
     mesh_launches = phase_mesh(dev, smi_line)
+    api_launches = phase_api(dev, smi_line)
     for row in rows:
         row["phase12_launches"] = mesh_launches.get(row["name"], 0)
+        row["phase13_launches"] = api_launches.get(row["name"], 0)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -31,6 +31,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..utils.device import launch_stream, on_device
+
 LANE = 128
 WARP = 32
 
@@ -394,10 +396,12 @@ def launch_gather(variant_id: int, src, src2, idx, w, reps: int, steps: int,
         raise ValueError(f"reps must be a positive multiple of 8 and steps "
                          f"positive, got {reps}, {steps}")
     out = torch.empty((ROWS, LANE), dtype=torch.float32, device=src.device)
-    code = build.library().micro_gather(
-        variant_id, int(smem), src.data_ptr(), src2.data_ptr(),
-        idx.data_ptr(), w.data_ptr(), out.data_ptr(), reps, steps,
-        torch.cuda.current_stream(src.device).cuda_stream)
+    lib = build.library()
+    with on_device(src):
+        code = lib.micro_gather(
+            variant_id, int(smem), src.data_ptr(), src2.data_ptr(),
+            idx.data_ptr(), w.data_ptr(), out.data_ptr(), reps, steps,
+            launch_stream(src))
     build.check("micro_gather", code)
     build.count_launch("micro_gather", "gather_floor_kernel"
                        if variant_id < FLOOR_VARIANTS else "gather_walk_kernel")
@@ -415,10 +419,12 @@ def launch_gather_hermite(k8: bool, src, src2, idx, w, units: int,
         raise ValueError(f"units must be a positive even count and steps "
                          f"positive, got {units}, {steps}")
     out = torch.empty((ROWS, LANE), dtype=torch.float32, device=src.device)
-    code = build.library().micro_gather_hermite(
-        int(k8), int(smem), src.data_ptr(), src2.data_ptr(), idx.data_ptr(),
-        w.data_ptr(), out.data_ptr(), units, steps,
-        torch.cuda.current_stream(src.device).cuda_stream)
+    lib = build.library()
+    with on_device(src):
+        code = lib.micro_gather_hermite(
+            int(k8), int(smem), src.data_ptr(), src2.data_ptr(),
+            idx.data_ptr(), w.data_ptr(), out.data_ptr(), units, steps,
+            launch_stream(src))
     build.check("micro_gather_hermite", code)
     build.count_launch("micro_gather", "gather_walk_kernel")
     return out
@@ -505,10 +511,11 @@ def launch_onehot(rf, k, wt, units: int, k8: bool, steps: int):
         raise ValueError(f"units and steps must be positive, got {units}, "
                          f"{steps}")
     out = torch.empty(rf.shape, dtype=torch.float32, device=rf.device)
-    code = build.library().micro_onehot(
-        rf.shape[0], int(k8), rf.data_ptr(), k.data_ptr(), wt.data_ptr(),
-        out.data_ptr(), units, steps,
-        torch.cuda.current_stream(rf.device).cuda_stream)
+    lib = build.library()
+    with on_device(rf):
+        code = lib.micro_onehot(
+            rf.shape[0], int(k8), rf.data_ptr(), k.data_ptr(),
+            wt.data_ptr(), out.data_ptr(), units, steps, launch_stream(rf))
     build.check("micro_onehot", code)
     build.count_launch("micro_onehot", "onehot_kernel")
     return out

@@ -38,6 +38,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from ..utils.device import launch_stream, on_device
 from . import (LANE, ROWS, ab_sources, card, check_gather_args,
                compile_source, gather_hermite_ref, require_gpu, traced_ms)
 from . import gather_micro, gather_micro2, gather_micro3, onehot_micro, \
@@ -83,14 +84,13 @@ def cases(dev) -> list:
         check_gather_args(a, b, idx, w, vid != gather_micro.VARIANT_IDS["mod"])
         return lambda lib, out, reps, smem: lib.micro_gather(
             vid, int(smem), a.data_ptr(), b.data_ptr(), idx.data_ptr(),
-            w.data_ptr(), out.data_ptr(), reps, steps,
-            torch.cuda.current_stream(dev).cuda_stream)
+            w.data_ptr(), out.data_ptr(), reps, steps, launch_stream(out))
 
     def bundle(k8, steps):
         check_gather_args(*g, True)
         return lambda lib, out, units, smem: lib.micro_gather_hermite(
             int(k8), int(smem), *(t.data_ptr() for t in g), out.data_ptr(),
-            units, steps, torch.cuda.current_stream(dev).cuda_stream)
+            units, steps, launch_stream(out))
 
     both = (True, False)
     return [
@@ -134,7 +134,8 @@ def measure(libs: dict, dev) -> dict:
 
                     def fn(launch=launch, out=out, count=count, smem=smem,
                            lib=lib):
-                        code = launch(lib, out, count, smem)
+                        with on_device(out):
+                            code = launch(lib, out, count, smem)
                         if code:
                             raise RuntimeError(f"{label}: cudaError {code}")
                         return out

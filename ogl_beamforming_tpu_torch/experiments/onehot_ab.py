@@ -31,6 +31,7 @@ import statistics
 
 import torch
 
+from ..utils.device import launch_stream, on_device
 from . import (ONEHOT_BATCHES, ab_sources, call_times, card,
                check_onehot_args, compile_source, onehot_ref, require_gpu,
                traced_ms)
@@ -75,11 +76,11 @@ def measure(libs: dict, x: dict) -> dict:
 
                 def fn(lib=lib, rf=rf, out=out, k8=k8, units=units,
                        steps=steps):
-                    code = lib.micro_onehot(
-                        rf.shape[0], int(k8), rf.data_ptr(),
-                        x["kvox"].data_ptr(), x["wt4"].data_ptr(),
-                        out.data_ptr(), units, steps,
-                        torch.cuda.current_stream(rf.device).cuda_stream)
+                    with on_device(rf):
+                        code = lib.micro_onehot(
+                            rf.shape[0], int(k8), rf.data_ptr(),
+                            x["kvox"].data_ptr(), x["wt4"].data_ptr(),
+                            out.data_ptr(), units, steps, launch_stream(rf))
                     if code:
                         raise RuntimeError(f"{label}: cudaError {code}")
                     return out

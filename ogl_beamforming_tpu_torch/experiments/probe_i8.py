@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..kernels import build
+from ..utils.device import on_device
 from . import card, host_us, require_gpu, three_ways_ms
 
 M = K = 128
@@ -74,9 +75,12 @@ def launch_i8_mma(body: int, a, b, out_dtype, scale=1.0) -> torch.Tensor:
             f"0 < K <= {MAX_K}; got a {a.dtype} {tuple(a.shape)} on "
             f"{a.device}, b {b.dtype} {tuple(b.shape)} on {b.device}")
     out = torch.empty((k, n), dtype=out_dtype, device=a.device)
-    build.check("micro_i8_mma", build.library().micro_i8_mma(
-        body, a.data_ptr(), b.data_ptr(), out.data_ptr(), k, n,
-        scale, torch._C._cuda_getCurrentRawStream(a.device.index)))
+    lib = build.library()
+    with on_device(a):
+        code = lib.micro_i8_mma(
+            body, a.data_ptr(), b.data_ptr(), out.data_ptr(), k, n, scale,
+            torch._C._cuda_getCurrentRawStream(a.device.index))
+    build.check("micro_i8_mma", code)
     build.count_launch("micro_i8", "i8_mma_kernel")
     return out
 
@@ -106,7 +110,9 @@ def host_breakdown(x: dict) -> dict:
     args = [0, a.data_ptr(), b.data_ptr(), out.data_ptr(), k, n, 1.0,
             torch._C._cuda_getCurrentRawStream(a.device.index)]
     refused = args[:4] + [0] + args[5:]          # K = 0: no launch
-    return {"kernel2": host_us(lambda: kernel2(a, b)),
+    with on_device(a):       # the card whose stream the launches take
+        return {
+            "kernel2": host_us(lambda: kernel2(a, b)),
             "torch_empty": host_us(lambda: torch.empty(
                 (k, n), dtype=torch.int32, device=a.device)),
             "new_empty": host_us(lambda: a.new_empty(
@@ -116,7 +122,8 @@ def host_breakdown(x: dict) -> dict:
             "raw_stream": host_us(
                 lambda: torch._C._cuda_getCurrentRawStream(a.device.index)),
             "ctypes_launch": host_us(lambda: lib.micro_i8_mma(*args)),
-            "ctypes_no_launch": host_us(lambda: lib.micro_i8_mma(*refused)),
+            "ctypes_no_launch": host_us(
+                lambda: lib.micro_i8_mma(*refused)),
             "torch._int_mm": host_us(lambda: torch._int_mm(a, b))}
 
 

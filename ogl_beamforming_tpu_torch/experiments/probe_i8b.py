@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..kernels import build
+from ..utils.device import on_device
 from . import card, require_gpu, three_ways_ms
 from .probe_i8 import int8_matmul_ref, launch_i8_mma
 
@@ -107,9 +108,12 @@ def k(body: str, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                          f"{h.dtype} {tuple(h.shape)} on {h.device}, x "
                          f"{x.dtype} {tuple(x.shape)} on {x.device}")
     out = torch.empty((a, bs), dtype=torch.float32, device=x.device)
-    build.check("micro_i8_elementwise", build.library().micro_i8_elementwise(
-        _ELEMENTWISE[body], h.data_ptr(), x.data_ptr(), out.data_ptr(), a,
-        bs, torch._C._cuda_getCurrentRawStream(x.device.index)))
+    lib = build.library()
+    with on_device(x):
+        code = lib.micro_i8_elementwise(
+            _ELEMENTWISE[body], h.data_ptr(), x.data_ptr(), out.data_ptr(),
+            a, bs, torch._C._cuda_getCurrentRawStream(x.device.index))
+    build.check("micro_i8_elementwise", code)
     build.count_launch("micro_i8", "i8_rowsum_kernel" if body == "rowsum"
                        else "i8_elementwise_kernel")
     return out

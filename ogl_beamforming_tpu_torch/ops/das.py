@@ -29,6 +29,11 @@ from ..params.enums import AcquisitionKind, InterpolationMode, RCAOrientation
 from ..utils.device import resolve_device
 from .golden import DasParams
 
+VOXEL_ALIGN = 64
+""":func:`das_ref` rounds ``voxel_block`` up to a multiple of this many
+voxels (a whole number of the CPU's widest float32 vectors)."""
+BACKENDS = ("auto", "cuda", "torch")
+"""The values of :attr:`DasStatic.backend`."""
 PI_F32 = float(np.float32(np.pi))
 TWO_PI_F32 = float(np.float32(2.0 * np.pi))
 DEG_F32 = float(np.float32(np.pi / 180))      # jnp.radians' constant
@@ -49,6 +54,19 @@ class DasStatic:
     sparse: bool = False
     readi_group_count: int = 0
     coherency_weighting: bool = False
+    voxel_block: int = 16384
+    """Voxels the plain twin computes at once (:func:`das_ref` walks the
+    grid in blocks of this many, rounded up to a multiple of
+    :data:`VOXEL_ALIGN`): it bounds the twin's transient, a few
+    (transmits, voxels) tensors, as the JAX package's XLA path bounds its
+    own.  The CUDA kernel ignores it, as the JAX package's Pallas kernel
+    does."""
+    backend: str = "auto"
+    """Which DAS runs (``pipeline.plan.resolve_das_backend`` maps the JAX
+    package's names onto these): ``"auto"`` the CUDA kernel for a CUDA
+    tensor and the plain twin for a CPU tensor, ``"cuda"`` the kernel (a
+    CPU tensor raises), ``"torch"`` the plain twin on the tensor's
+    device."""
     global_points: tuple[int, int, int] | None = None
     """Full output grid when this call computes a slab of it starting at
     ``dyn["x_offset"]``: voxel coordinates use its denominators."""
@@ -113,7 +131,8 @@ def make_dynamic(p: DasParams, device) -> dict:
     }
 
 
-def make_static(p: DasParams, iq: bool) -> DasStatic:
+def make_static(p: DasParams, iq: bool,
+                voxel_block: int = 16384) -> DasStatic:
     return DasStatic(
         acquisition_kind=p.acquisition_kind,
         acquisition_count=p.acquisition_count,
@@ -125,6 +144,7 @@ def make_static(p: DasParams, iq: bool) -> DasStatic:
         sparse=bool(p.sparse),
         readi_group_count=int(p.readi_group_count),
         coherency_weighting=bool(p.coherency_weighting),
+        voxel_block=int(voxel_block),
     )
 
 
@@ -491,8 +511,21 @@ def das_ref(rf: torch.Tensor, dyn: dict, st: DasStatic):
     if st.family == "none":
         # no das.glsl dispatch case for this kind: the frame stays zero
         return _zero_frame(st, rf.device)
+    if st.voxel_block < 1:
+        raise ValueError(f"voxel_block must be positive, got "
+                         f"{st.voxel_block}")
     block = _FAMILY_BLOCK[st.family]
-    out, inco = block(st, dyn, rf, _world_points(st, dyn))
+    world = _world_points(st, dyn)
+    # Every voxel's sum is its own.  Blocks of a multiple of VOXEL_ALIGN
+    # voxels start where a vector of the whole grid would, so each voxel
+    # takes the same vector or tail instructions as in one block of the
+    # grid and comes out bit for bit the same.
+    step = -(-st.voxel_block // VOXEL_ALIGN) * VOXEL_ALIGN
+    parts = [block(st, dyn, rf, world[v:v + step])
+             for v in range(0, world.shape[0], step)]
+    out, inco = (parts[0] if len(parts) == 1 else
+                 (torch.cat([o for o, _ in parts]),
+                  torch.cat([i for _, i in parts])))
     shape = st.output_points
     if st.coherency_weighting:
         return out.reshape(shape), inco.reshape(shape)
@@ -500,27 +533,37 @@ def das_ref(rf: torch.Tensor, dyn: dict, st: DasStatic):
 
 
 def das(rf: torch.Tensor, dyn: dict, st: DasStatic):
-    """DAS one frame or a batch: the CUDA kernel for a CUDA tensor, the
-    plain twin for a CPU tensor (same signature and outputs as
-    :func:`das_ref`)."""
-    if rf.is_cuda:
+    """DAS one frame or a batch (same signature and outputs as
+    :func:`das_ref`): by ``st.backend``, the CUDA kernel or the plain twin
+    (``"auto"``: the kernel for a CUDA tensor, the twin for a CPU
+    tensor)."""
+    if st.backend not in BACKENDS:
+        raise ValueError(f"DAS backend {st.backend!r} is not one of "
+                         f"{BACKENDS}")
+    if st.backend == "cuda" or st.backend == "auto" and rf.is_cuda:
         if st.family == "none":
             return _zero_frame(st, rf.device)
         from .das_cuda import das_cuda      # das_cuda imports this module
-        return das_cuda(rf, dyn, st)
-    if rf.device.type != "cpu":
+        return das_cuda(rf, dyn, st)        # raises for a CPU tensor
+    if rf.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no DAS for device {rf.device}")
     return das_ref(rf, dyn, st)
 
 
-def das_from_params(rf, p: DasParams, device="cuda"):
+das_jit = das
+"""The JAX package's jit-compiled :func:`das`: the port runs eagerly, so it
+is :func:`das` itself."""
+
+
+def das_from_params(rf, p: DasParams, voxel_block: int = 16384,
+                    device="cuda"):
     """The golden ``das(rf, params)`` API on the port: ``make_static``,
     ``make_dynamic`` and :func:`das` in one call.  A numpy ``rf`` goes to
     ``device`` (the GPU unless told otherwise; raises without one); a
     tensor stays where it is, so a CUDA tensor takes the kernel and a CPU
-    tensor the twin."""
+    tensor the twin, which computes ``voxel_block`` voxels at once."""
     if not isinstance(rf, torch.Tensor):
         rf = torch.from_numpy(np.ascontiguousarray(rf)).to(
             resolve_device(device))
-    st = make_static(p, iq=rf.is_complex())
+    st = make_static(p, iq=rf.is_complex(), voxel_block=voxel_block)
     return das(rf, make_dynamic(p, rf.device), st)

@@ -324,18 +324,20 @@ def _thread_args(st: DasStatic, thread=None) -> tuple:
 
 
 def blocks_per_sm(st: DasStatic, n_tx: int, tx_pass: int = WIDE_PASS,
-                  frames: int = 1, thread=None) -> int:
-    """Blocks of 128 voxels that one SM holds at once for the kernel of
-    ``st`` with ``n_tx`` transmits (or acquisitions) and, for FORCES, an
-    index table of ``tx_pass`` transmits, for HERCULES and RCA in thread
-    shape ``thread`` (default: the family's): the occupancy its registers
-    and shared memory allow
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+                  frames: int = 1, thread=None, device="cuda") -> int:
+    """Blocks of 128 voxels that one SM of ``device`` (default: the
+    current card) holds at once for the kernel of ``st`` with ``n_tx``
+    transmits (or acquisitions) and, for FORCES, an index table of
+    ``tx_pass`` transmits, for HERCULES and RCA in thread shape ``thread``
+    (default: the family's): the occupancy its registers and shared memory
+    allow (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     blocks = ctypes.c_int(0)
-    code = build.library().das_occupancy(
-        _FAMILY[st.family], _MODE[st.interpolation_mode], int(st.iq),
-        int(st.coherency_weighting), frames, n_tx, tx_pass,
-        *_thread_args(st, thread), ctypes.byref(blocks))
+    lib = build.library()
+    with device_utils.on_device(device):
+        code = lib.das_occupancy(
+            _FAMILY[st.family], _MODE[st.interpolation_mode], int(st.iq),
+            int(st.coherency_weighting), frames, n_tx, tx_pass,
+            *_thread_args(st, thread), ctypes.byref(blocks))
     build.check("das_occupancy", code)
     return blocks.value
 
@@ -352,7 +354,8 @@ def _chunks(batch: int, per_launch: int = FRAMES_PER_LAUNCH):
 
 
 def das_cuda(rf: torch.Tensor, dyn: dict, st: DasStatic):
-    """Launch the DAS kernel of ``st``'s family on ``rf``: one frame
+    """Launch the DAS kernel of ``st``'s family on ``rf``, on the card that
+    holds it: one frame
     (C, A, S), or (B, C, A, S) when ``st.frame_batch = B > 1``; contiguous
     float32, or complex64 when ``st.iq``, on a CUDA device that also holds
     ``dyn``.  Returns the (nx, ny, nz) volume, or (B, nx, ny, nz), or
@@ -407,17 +410,19 @@ def das_cuda(rf: torch.Tensor, dyn: dict, st: DasStatic):
     out_frame = nx * ny * nz * out.element_size()
     inco_frame = nx * ny * nz * 4
     lib = build.library()
-    stream = torch.cuda.current_stream(rf.device).cuda_stream
     thread = _thread_args(st, tables.get("thread"))
     for first, frames in _chunks(batch, tables.get("fb", FRAMES_PER_LAUNCH)):
-        code = lib.das_launch(
-            _FAMILY[st.family], rf.data_ptr() + first * rf_frame,
-            scalars.data_ptr(), tab, *tx, out.data_ptr() + first * out_frame,
-            None if inco is None else inco.data_ptr() + first * inco_frame,
-            channels, st.channel_count, rf_rows, samples, n_tx,
-            nx, ny, nz, gnx, gny, gnz, *flags, frames,
-            tables.get("tx_pass", WIDE_PASS), tables.get("run", 1),
-            tables.get("tx_walk", INTERVAL_WALK), *thread, stream)
+        with device_utils.on_device(rf):
+            code = lib.das_launch(
+                _FAMILY[st.family], rf.data_ptr() + first * rf_frame,
+                scalars.data_ptr(), tab, *tx,
+                out.data_ptr() + first * out_frame,
+                None if inco is None else inco.data_ptr() + first * inco_frame,
+                channels, st.channel_count, rf_rows, samples, n_tx,
+                nx, ny, nz, gnx, gny, gnz, *flags, frames,
+                tables.get("tx_pass", WIDE_PASS), tables.get("run", 1),
+                tables.get("tx_walk", INTERVAL_WALK), *thread,
+                device_utils.launch_stream(rf))
         name = launch_name(st, frames)
         build.check(name, code)
         build.count_launch(name, f"das_{st.family}_kernel", variant=(
@@ -478,8 +483,10 @@ def autotune_das(rf, dyn: dict, st: DasStatic, candidates=None,
                 TUNED[key] = dict(knobs)
                 try:
                     d = dict(dyn, launch=launch_tables(st, dyn))
-                    dt = device_utils.event_seconds(
-                        lambda: das_cuda(rf, d, st), iters, warmup)
+                    # the events on the card that holds rf
+                    with device_utils.on_device(rf):
+                        dt = device_utils.event_seconds(
+                            lambda: das_cuda(rf, d, st), iters, warmup)
                 except (RuntimeError, ValueError) as e:   # it may not launch
                     results[repr(knobs)] = None
                     if verbose:

@@ -48,30 +48,35 @@ def _inv_order(a: int) -> np.float32:
     return np.float32(1.0 / a)
 
 
-def decode_hadamard_ref(rf: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+def decode_hadamard_ref(rf: torch.Tensor,
+                        hadamard: torch.Tensor) -> torch.Tensor:
     """Plain-torch decode of ``rf`` (C, A, S) int16, float32 or complex64
-    with ``h`` (A, A).  A float32 matmul: exact for int16 input, since every
-    partial sum is an integer below 2**24 (TF32 is off, see the package
-    ``__init__``)."""
+    with ``hadamard`` (A, A).  A float32 matmul: exact for int16 input,
+    since every partial sum is an integer below 2**24 (TF32 is off, see
+    the package ``__init__``)."""
     if rf.is_complex():
-        return torch.complex(decode_hadamard_ref(rf.real.contiguous(), h),
-                             decode_hadamard_ref(rf.imag.contiguous(), h))
+        return torch.complex(
+            decode_hadamard_ref(rf.real.contiguous(), hadamard),
+            decode_hadamard_ref(rf.imag.contiguous(), hadamard))
     a = rf.shape[1]
-    y = torch.matmul(h.to(device=rf.device, dtype=torch.float32),
+    y = torch.matmul(hadamard.to(device=rf.device, dtype=torch.float32),
                      rf.to(torch.float32))
     return y * torch.tensor(_inv_order(a), device=rf.device)
 
 
-def decode_hadamard_cuda(rf: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA decode kernel.  ``rf``: contiguous CUDA (C, A, S)
-    int16, float32 or complex64; ``h``: (A, A) with entries +-1 (a Hadamard
-    or Walsh matrix) on the same device; 0 < A <= :data:`MAX_ORDER`.  An
-    int16 launch takes the knobs of its shape (:func:`decode_knobs`)."""
+def decode_hadamard_cuda(rf: torch.Tensor,
+                         hadamard: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA decode kernel, on the card that holds ``rf``.
+    ``rf``: contiguous CUDA (C, A, S) int16, float32 or complex64;
+    ``hadamard``: (A, A) with entries +-1 (a Hadamard or Walsh matrix) on
+    the same device; 0 < A <= :data:`MAX_ORDER`.  An int16 launch takes the
+    knobs of its shape (:func:`decode_knobs`)."""
+    h = hadamard
     if not rf.is_cuda or h.device != rf.device:
-        raise ValueError("decode_hadamard_cuda needs rf and h on one CUDA "
-                         f"device, got {rf.device} and {h.device}")
+        raise ValueError("decode_hadamard_cuda needs rf and hadamard on one "
+                         f"CUDA device, got {rf.device} and {h.device}")
     if rf.dim() != 3 or h.shape != (rf.shape[1], rf.shape[1]):
-        raise ValueError(f"rf must be (C, A, S) and h (A, A); got "
+        raise ValueError(f"rf must be (C, A, S) and hadamard (A, A); got "
                          f"{tuple(rf.shape)} and {tuple(h.shape)}")
     if not 0 < rf.shape[1] <= MAX_ORDER:
         raise ValueError(f"decode kernel takes orders 1..{MAX_ORDER}, got "
@@ -95,7 +100,6 @@ def decode_hadamard_cuda(rf: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     h8 = h.to(torch.int8).contiguous()
     out = torch.empty((c, a, s), dtype=torch.float32, device=rf.device)
     lib = build.library()
-    stream = torch.cuda.current_stream(rf.device).cuda_stream
     knobs, kernel = (), "decode_f32_kernel"
     if entry == "decode_int16":
         tuned = decode_knobs((c, a, s))
@@ -103,8 +107,10 @@ def decode_hadamard_cuda(rf: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
                  tuned.get("row_warps", I8_TILES[0][1]))
         kernel = ("decode_i8_kernel" if knobs == I8_TILES[0]
                   else "decode_i8_tile_kernel")
-    code = getattr(lib, entry)(rf.data_ptr(), h8.data_ptr(), out.data_ptr(),
-                               c, a, s, float(_inv_order(a)), *knobs, stream)
+    with device_utils.on_device(rf):
+        code = getattr(lib, entry)(
+            rf.data_ptr(), h8.data_ptr(), out.data_ptr(), c, a, s,
+            float(_inv_order(a)), *knobs, device_utils.launch_stream(rf))
     build.check(entry, code)
     build.count_launch("decode_hadamard", kernel)
     if cplx:
@@ -112,18 +118,34 @@ def decode_hadamard_cuda(rf: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def decode_hadamard(rf: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """Decode ``rf`` (C, A, S) with ``h`` (A, A): the CUDA kernel for a CUDA
-    tensor, the plain twin for a CPU tensor.  float16 RF (Float16 wire
-    data) is decoded as its float32 values, exactly, as the JAX package's
-    decode casts it."""
+PRECISIONS = ("default", "high", "highest")
+"""The ``precision`` values of :func:`decode_hadamard` (the JAX package's
+``jax.lax.Precision`` names)."""
+
+
+def decode_hadamard(rf: torch.Tensor, hadamard: torch.Tensor,
+                    precision: str = "high") -> torch.Tensor:
+    """Decode ``rf`` (C, A, S) with ``hadamard`` (A, A): the CUDA kernel for
+    a CUDA tensor, the plain twin for a CPU tensor.  float16 RF (Float16
+    wire data) is decoded as its float32 values, exactly, as the JAX
+    package's decode casts it.
+
+    ``precision`` takes the JAX package's names, :data:`PRECISIONS`; any
+    other value raises ``ValueError``.  On the TPU they choose how many
+    bf16 passes the matrix unit makes.  Here every one gives the
+    float32-accurate result: on the card all three run the same kernel
+    (int16 exact on the int8 tensor cores, float input as three exact bf16
+    terms, within 1e-6 of the peak), on the CPU the float32 twin."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision {precision!r} is not one of "
+                         f"{PRECISIONS}")
     if rf.is_cuda:
         if rf.dtype == torch.float16:
             rf = rf.to(torch.float32)
-        return decode_hadamard_cuda(rf, h)
+        return decode_hadamard_cuda(rf, hadamard)
     if rf.device.type != "cpu":
         raise ValueError(f"no decode for device {rf.device}")
-    return decode_hadamard_ref(rf, h)
+    return decode_hadamard_ref(rf, hadamard)
 
 
 # Per-shape launch knobs of the int16 kernel, chosen as the JAX package's
@@ -257,26 +279,31 @@ def autotune_decode(rf, hadamard, candidates=None, iters: int = 50,
     results: dict = {}
     saved = dict(DECODE_ABLATE)
     prior = DECODE_TUNED.pop(key, None)   # candidates run pure
-    try:
-        for _ in range(max(1, passes)):
-            for knobs in candidates:
-                if repr(knobs) in results and results[repr(knobs)] is None:
-                    continue
-                DECODE_ABLATE.clear()
-                DECODE_ABLATE.update(knobs)
-                try:
-                    dt = device_utils.event_seconds(
-                        lambda: decode_hadamard(rf, hadamard), iters, warmup)
-                except (RuntimeError, ValueError):   # it may not launch
-                    results[repr(knobs)] = None
-                    continue
-                prev = results.get(repr(knobs))
-                results[repr(knobs)] = dt if prev is None else min(prev, dt)
-    finally:
-        DECODE_ABLATE.clear()
-        DECODE_ABLATE.update(saved)
-        if prior is not None:
-            DECODE_TUNED[key] = prior
+    # the events and launches on the card that holds rf
+    with device_utils.on_device(rf):
+        try:
+            for _ in range(max(1, passes)):
+                for knobs in candidates:
+                    if repr(knobs) in results \
+                            and results[repr(knobs)] is None:
+                        continue
+                    DECODE_ABLATE.clear()
+                    DECODE_ABLATE.update(knobs)
+                    try:
+                        dt = device_utils.event_seconds(
+                            lambda: decode_hadamard(rf, hadamard), iters,
+                            warmup)
+                    except (RuntimeError, ValueError):   # may not launch
+                        results[repr(knobs)] = None
+                        continue
+                    prev = results.get(repr(knobs))
+                    results[repr(knobs)] = (dt if prev is None
+                                            else min(prev, dt))
+        finally:
+            DECODE_ABLATE.clear()
+            DECODE_ABLATE.update(saved)
+            if prior is not None:
+                DECODE_TUNED[key] = prior
     timed = [(t, i) for i, knobs in enumerate(candidates)
              if (t := results.get(repr(knobs))) is not None]
     best = dict(candidates[min(timed)[1]]) if timed else {}

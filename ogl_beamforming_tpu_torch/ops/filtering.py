@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import build
+from ..utils import device as device_utils
 
 TWO_PI_F32 = float(np.float32(2.0 * np.pi))
 SQRT2_F32 = float(np.float32(np.sqrt(2.0)))
@@ -171,7 +172,8 @@ def demodulate_cuda(rf: torch.Tensor, taps: torch.Tensor,
                     decimation_rate: int = 1,
                     complex_filter: bool = False,
                     phasor: torch.Tensor | None = None) -> torch.Tensor:
-    """Launch the fused demodulate kernel on ``rf`` (..., S): contiguous CUDA
+    """Launch the fused demodulate kernel on ``rf`` (..., S), on the card
+    that holds it: contiguous CUDA
     int16 or float32; ``taps`` (L,) float32 or complex64 on the same
     device; ``phasor`` the plan's rotation table (:func:`demod_phasor`),
     built here when None.  Same outputs as :func:`demodulate_ref`."""
@@ -187,12 +189,12 @@ def demodulate_cuda(rf: torch.Tensor, taps: torch.Tensor,
     out = torch.empty(rf.shape[:-1] + (n_out,), dtype=torch.complex64,
                       device=rf.device)
     lib = build.library()
-    stream = torch._C._cuda_getCurrentRawStream(rf.device.index)
-    code = lib.demodulate(
-        rf.data_ptr(), table.data_ptr(), h.data_ptr(), out.data_ptr(), rows,
-        s_in, n_out, taps.shape[0], decimation_rate,
-        int(rf.dtype == torch.int16), int(taps.is_complex()),
-        _demod_scale(complex_filter), stream)
+    with device_utils.on_device(rf):
+        code = lib.demodulate(
+            rf.data_ptr(), table.data_ptr(), h.data_ptr(), out.data_ptr(),
+            rows, s_in, n_out, taps.shape[0], decimation_rate,
+            int(rf.dtype == torch.int16), int(taps.is_complex()),
+            _demod_scale(complex_filter), device_utils.launch_stream(rf))
     build.check("demodulate", code)
     build.count_launch("demodulate", "demodulate_kernel")
     return out
@@ -200,7 +202,8 @@ def demodulate_cuda(rf: torch.Tensor, taps: torch.Tensor,
 
 def fir_cuda(x: torch.Tensor, taps: torch.Tensor,
              decimation_rate: int = 1) -> torch.Tensor:
-    """Launch the FIR kernel on ``x`` (..., S): contiguous CUDA float32 or
+    """Launch the FIR kernel on ``x`` (..., S), on the card that holds it:
+    contiguous CUDA float32 or
     complex64; ``taps`` (L,) float32 or complex64 on the same device.  Same
     outputs as :func:`fir_filter_ref`."""
     _check_cuda(x, "fir_cuda", (torch.float32, torch.complex64))
@@ -215,10 +218,11 @@ def fir_cuda(x: torch.Tensor, taps: torch.Tensor,
                       dtype=torch.complex64 if cplx else torch.float32,
                       device=x.device)
     lib = build.library()
-    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
-    code = lib.fir(x.data_ptr(), h.data_ptr(), out.data_ptr(), rows, s, n_out,
-                   taps.shape[0], decimation_rate, int(x.is_complex()),
-                   int(taps.is_complex()), stream)
+    with device_utils.on_device(x):
+        code = lib.fir(x.data_ptr(), h.data_ptr(), out.data_ptr(), rows, s,
+                       n_out, taps.shape[0], decimation_rate,
+                       int(x.is_complex()), int(taps.is_complex()),
+                       device_utils.launch_stream(x))
     build.check("fir", code)
     build.count_launch("fir", "fir_kernel")
     return out
@@ -236,16 +240,16 @@ def _on_cpu(x: torch.Tensor, name: str) -> bool:
     return True
 
 
-def fir_filter(x: torch.Tensor, taps: torch.Tensor,
+def fir_filter(rf: torch.Tensor, taps: torch.Tensor,
                decimation_rate: int = 1) -> torch.Tensor:
-    """FIR along the last axis: the CUDA kernel for a CUDA tensor (integer
-    data is converted to float32 first, as the twin does), the plain twin
-    for a CPU tensor."""
-    if _on_cpu(x, "FIR"):
-        return fir_filter_ref(x, taps, decimation_rate)
-    if not x.is_complex():
-        x = x.to(torch.float32)
-    return fir_cuda(x.contiguous(), taps, decimation_rate)
+    """FIR along the last axis of ``rf``: the CUDA kernel for a CUDA tensor
+    (integer data is converted to float32 first, as the twin does), the
+    plain twin for a CPU tensor."""
+    if _on_cpu(rf, "FIR"):
+        return fir_filter_ref(rf, taps, decimation_rate)
+    if not rf.is_complex():
+        rf = rf.to(torch.float32)
+    return fir_cuda(rf.contiguous(), taps, decimation_rate)
 
 
 def demodulate(rf: torch.Tensor, taps: torch.Tensor, demodulation_frequency,

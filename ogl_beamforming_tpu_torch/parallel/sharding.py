@@ -181,14 +181,16 @@ def make_mesh_tx(channel_devices: int, transmit_devices: int, devices=None,
 
 @dataclass(frozen=True, eq=False)
 class ShardedRF:
-    """A (C, A, S) frame placed on a mesh by channel rows: ``blocks`` maps
-    each of this process's positions (mesh index) to its channel block, on
-    its device; ``shape`` is the global frame's."""
+    """A (C, A, S) frame placed on a mesh: ``blocks`` maps each of this
+    process's positions (mesh index) to its block, on its device: its
+    channel rows (``axis_name``) and, when ``transmit_axis`` is set, only
+    its acquisitions along that axis; ``shape`` is the global frame's."""
 
     mesh: Mesh
     shape: tuple[int, ...]
     blocks: dict
     axis_name: str = CHANNEL_AXIS
+    transmit_axis: str | None = None
 
 
 def as_frame(rf) -> torch.Tensor:
@@ -197,20 +199,71 @@ def as_frame(rf) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(rf))
 
 
+@dataclass(frozen=True, eq=False)
+class RFSharding:
+    """How a (C, A, S) frame lies on ``mesh``, the counterpart of the JAX
+    package's ``NamedSharding`` of it: each position takes the channel
+    rows of its index along ``channel_axis`` and, with ``transmit_axis``,
+    only the acquisitions of its index along that axis.  Along an axis it
+    names neither, every index holds the same block."""
+
+    mesh: Mesh
+    channel_axis: str = CHANNEL_AXIS
+    transmit_axis: str | None = None
+
+    def _part(self, index, size: int, axis: str, what: str) -> slice:
+        n = self.mesh.shape[axis]
+        if size % n:
+            raise ValueError(f"{what} {size} not divisible by {n} devices")
+        k = index[self.mesh.axis_names.index(axis)]
+        return slice(k * (size // n), (k + 1) * (size // n))
+
+    def block(self, index, shape) -> tuple[slice, slice]:
+        """The (channel rows, acquisitions) of a frame of ``shape`` that
+        the position at mesh ``index`` takes."""
+        rows = self._part(index, shape[0], self.channel_axis,
+                          "channel count")
+        if self.transmit_axis is None:
+            return rows, slice(None)
+        return rows, self._part(index, shape[1], self.transmit_axis,
+                                "acquisition count")
+
+    def place(self, rf) -> ShardedRF:
+        """A whole (C, A, S) frame (a tensor or numpy) placed by this
+        sharding on this process's positions."""
+        rf = as_frame(rf)
+        blocks = {idx: rf[self.block(idx, rf.shape)].to(dev).contiguous()
+                  for idx, dev in self.mesh.local()}
+        return ShardedRF(self.mesh, tuple(rf.shape), blocks,
+                         self.channel_axis, self.transmit_axis)
+
+
+def rf_sharding(mesh: Mesh, axis_name: str = CHANNEL_AXIS) -> RFSharding:
+    """The sharding of a (C, A, S) frame split by channel rows over
+    ``mesh``'s ``axis_name``."""
+    return RFSharding(mesh, axis_name)
+
+
 def shard_rf(rf, mesh: Mesh, axis_name: str = CHANNEL_AXIS) -> ShardedRF:
     """Place a whole (C, A, S) frame (a tensor or numpy) on ``mesh``: each
     of this process's positions gets the channel rows of its index along
-    ``axis_name``."""
-    rf = as_frame(rf)
-    n = mesh.shape[axis_name]
-    if rf.shape[0] % n:
-        raise ValueError(f"channel count {rf.shape[0]} not divisible by "
-                         f"{n} devices")
-    per = rf.shape[0] // n
-    ax = mesh.axis_names.index(axis_name)
-    blocks = {idx: rf[idx[ax] * per:(idx[ax] + 1) * per].to(dev)
-              for idx, dev in mesh.local()}
-    return ShardedRF(mesh, tuple(rf.shape), blocks, axis_name)
+    ``axis_name`` (:func:`rf_sharding`)."""
+    return rf_sharding(mesh, axis_name).place(rf)
+
+
+def shard_rf_2d(rf, mesh: Mesh, channel_axis: str = CHANNEL_AXIS
+                ) -> ShardedRF:
+    """A whole frame placed on a channels x slabs mesh (``make_mesh_2d``):
+    each position gets its channel block, on every slab."""
+    return rf_sharding(mesh, channel_axis).place(rf)
+
+
+def shard_rf_tx(rf, mesh: Mesh, channel_axis: str = CHANNEL_AXIS,
+                transmit_axis: str = TRANSMIT_AXIS) -> ShardedRF:
+    """A whole frame placed on a channels x transmits mesh
+    (``make_mesh_tx``): each position gets only its (channel block,
+    transmit block), which a ``shard_plan_tx`` plan takes as it is."""
+    return RFSharding(mesh, channel_axis, transmit_axis).place(rf)
 
 
 @dataclass
@@ -316,6 +369,7 @@ class ShardedPlan:
         self.dyn = plan.dyn
         self.mesh = mesh
         self.channel_axis = channel_axis
+        self.transmit_axis = transmit_axis
         self.home = mesh.home()
         self._others = [] if self.home.type != "cuda" else sorted(
             {dev.index for _, dev in mesh.local()
@@ -359,11 +413,14 @@ class ShardedPlan:
     def _blocks(self, rf) -> list[torch.Tensor]:
         if isinstance(rf, ShardedRF):
             if rf.axis_name != self.channel_axis or \
+                    rf.transmit_axis not in (None, self.transmit_axis) or \
                     rf.mesh.positions.shape != self.mesh.positions.shape:
                 raise ValueError("the frame was placed on another mesh")
             if rf.shape[0] != self.descriptor.channel_count:
                 raise ValueError(f"frame of {rf.shape[0]} channels, plan of "
                                  f"{self.descriptor.channel_count}")
+            if rf.transmit_axis:        # placed with its transmits only
+                return [rf.blocks[sh.index] for sh in self.shards]
             return [rf.blocks[sh.index][:, sh.acquisitions].contiguous()
                     for sh in self.shards]
         rf = as_frame(rf)

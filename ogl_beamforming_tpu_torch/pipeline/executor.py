@@ -140,6 +140,11 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
     return a.type == b.type and index(a) == index(b)
 
 
+STAGE_TIMINGS = ("calibrated", "device")
+"""The ``stage_timing`` values of :class:`Beamformer` (the JAX
+package's)."""
+
+
 class Beamformer:
     """A beamforming session on one device: the user-facing API.
 
@@ -152,11 +157,31 @@ class Beamformer:
     ``parallel.sharding.Mesh`` over which every plan runs channel-sharded
     (its channel count must divide the mesh's channel axis); ``device``
     must be the mesh's first position of this process, where frames land.
+    ``voxel_block`` goes to ``build_plan``: the voxels the plain DAS twin
+    computes at once (the CUDA kernel ignores it).
+
+    ``profile`` and ``stage_timing`` take the JAX package's values.  There
+    they choose how the stats table's per-stage times are measured: by
+    running the stages as separate programs (``profile=True``), or by
+    splitting a fused frame's time by a calibration timed by wall clock
+    (``stage_timing="calibrated"``) or by device traces (``"device"``).
+    The port never fuses stages: every frame runs them one after another
+    and times each by CUDA events (``_StageClock``), so every setting
+    gives the same device split of each frame, and
+    :meth:`compute_timings` is the same table.  ``stage_timing`` must be
+    one of :data:`STAGE_TIMINGS` (``ValueError`` otherwise).
     """
 
     def __init__(self, device="cuda", backlog_bytes: int = 1 << 30,
-                 mesh=None):
+                 voxel_block: int = 65536, profile: bool = False, mesh=None,
+                 stage_timing: str = "calibrated"):
+        if stage_timing not in STAGE_TIMINGS:
+            raise ValueError(f"stage_timing {stage_timing!r} is not one of "
+                             f"{STAGE_TIMINGS}")
         self.device = resolve_device(device)
+        self.profile = profile
+        self.stage_timing = stage_timing
+        self._voxel_block = voxel_block
         self.mesh = mesh
         if mesh is not None and not _same_device(mesh.home(), self.device):
             raise ValueError(f"device {self.device} is not the mesh's first "
@@ -282,7 +307,8 @@ class Beamformer:
             sparse_elements=b.sparse_elements[:a],
             focal_vectors=b.focal_vectors[:a],
             transmit_receive_orientations=b.transmit_receive_orientations[:a],
-            device=self.device, frame_batch=frame_batch)
+            voxel_block=self._voxel_block, device=self.device,
+            frame_batch=frame_batch)
 
     def push_data_with_compute(self, data: np.ndarray,
                                image_plane_tag: int = 0,

@@ -5,7 +5,11 @@ A plan is the pipeline spec walked into static stage descriptors plus the
 dynamic parameters as tensors on the plan's device.  PyTorch runs eagerly,
 so there is no compile step and no program cache: :func:`compose_stages`
 runs the stages in order, each one dispatching to its CUDA kernel or its
-plain twin by the device of the data.
+plain twin by the device of the data (the DAS stage by the plan's
+``das_backend``, :func:`resolve_das_backend`).  :func:`compiled_stage_fns`
+gives the stages one at a time, as the JAX package's profile mode runs
+them; they are the one thing kept per descriptor, and
+:func:`clear_plan_cache` drops them.
 
 Ported stages: Demodulate, Filter, Hilbert, Decode (Hadamard and Walsh)
 and DAS (every family).  A plan built with ``frame_batch=B > 1`` takes B
@@ -15,6 +19,7 @@ frames (B, C, A, S_wire) per call and returns (B, nx, ny, nz) volumes.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -67,10 +72,23 @@ class PlanDescriptor:
 @dataclass
 class CompiledPlan:
     """A built plan: call it with canonical (C, A, S_wire) RF on its
-    device, or (B, C, A, S_wire) for a plan of ``frame_batch = B > 1``."""
+    device, or (B, C, A, S_wire) for a plan of ``frame_batch = B > 1``.
+    ``fn(rf, dyn)`` is the plan's function of its dynamic parameters, as
+    the JAX package's jitted one (here :func:`compose_stages` on the
+    plan's descriptor); the other fields are the planner's facts, as the
+    JAX package keeps them."""
 
     descriptor: PlanDescriptor
     dyn: dict                        # dynamic parameters, tensors on device
+    output_points: tuple[int, int, int]
+    iq: bool
+    time_offset: float
+    das_sample_count: int
+    das_sampling_frequency: float
+
+    @property
+    def fn(self):
+        return functools.partial(compose_stages, self.descriptor)
 
     def __call__(self, rf, mark=None):
         return compose_stages(self.descriptor, rf, self.dyn, mark)
@@ -148,20 +166,56 @@ def _decode_matrix(parameters: Parameters) -> np.ndarray:
             f"(2^k, 12*2^k, 20*2^k; Walsh: 2^k only): {e}")
 
 
+DAS_BACKENDS = {"auto": None, "cuda": "cuda", "pallas": "cuda",
+                "torch": "torch", "xla": "torch", "pallas_interpret": "torch"}
+"""The ``das_backend`` names :func:`resolve_das_backend` takes (the JAX
+package's and the port's), and the DAS each runs: ``None`` for the
+device's own."""
+
+
+def resolve_das_backend(backend: str = "auto", device="cuda") -> str:
+    """The ``DasStatic.backend`` of a plan on ``device`` built with
+    ``das_backend=backend``: ``"auto"`` the CUDA kernel on a GPU and the
+    plain twin on the CPU; ``"cuda"`` or the JAX package's ``"pallas"`` the
+    kernel, which a CPU plan refuses (``ValueError``); ``"torch"`` or the
+    JAX package's ``"xla"`` and ``"pallas_interpret"`` the plain twin, on
+    whatever device the plan is on."""
+    if backend not in DAS_BACKENDS:
+        raise ValueError(f"DAS backend {backend!r} is not one of "
+                         f"{sorted(DAS_BACKENDS)}")
+    dev = torch.device(device)
+    out = DAS_BACKENDS[backend] or ("cuda" if dev.type == "cuda"
+                                    else "torch")
+    if out == "cuda" and dev.type != "cuda":
+        raise ValueError(f"DAS backend {backend!r} runs the CUDA kernel; "
+                         f"the plan is on {dev}")
+    return out
+
+
 def build_plan(parameters: Parameters, pipeline: PipelineSpec,
-               filters: dict[int, Filter], sparse_elements=None,
-               focal_vectors=None, transmit_receive_orientations=None,
-               device="cuda", frame_batch: int = 1) -> CompiledPlan:
+               filters: dict[int, Filter], channel_mapping=None,
+               sparse_elements=None, focal_vectors=None,
+               transmit_receive_orientations=None, voxel_block: int = 65536,
+               das_backend: str = "auto", device="cuda",
+               frame_batch: int = 1) -> CompiledPlan:
     """Build the plan for a parameter block's current state, with its
     dynamic parameters on ``device`` (a GPU unless the caller asks for the
     CPU; ``RuntimeError`` when no GPU is available).  ``frame_batch=B > 1``
     builds a batched plan: B frames per call, each DAS launch taking up to
-    four of them (``ops/das_cuda.py``).  On the GPU the DAS launch tables
-    are built here under the knobs installed for the plan's configuration
-    (``das_cuda.TUNED``): a ``load_tuned`` or ``autotune_das`` after it
-    takes effect at the next ``build_plan``, as a JAX plan traced before a
-    table changed keeps its knobs until it is traced again."""
+    four of them (``ops/das_cuda.py``).  ``das_backend`` chooses the DAS
+    (:func:`resolve_das_backend`); the plain twin computes ``voxel_block``
+    voxels at once.  ``channel_mapping`` is taken and not used, as in the
+    JAX package: the executor maps channels when it prepares a frame.  On
+    the GPU the DAS launch tables are built here under the knobs installed
+    for the plan's configuration (``das_cuda.TUNED``): a ``load_tuned`` or
+    ``autotune_das`` after it takes effect at the next ``build_plan``, as a
+    JAX plan traced before a table changed keeps its knobs until it is
+    traced again."""
     dev = resolve_device(device)
+    # "auto" stays "auto", the DAS of the data's device (the plan's), so a
+    # plan's DAS follows its tensors as every other stage does
+    backend = ("auto" if das_backend == "auto"
+               else resolve_das_backend(das_backend, dev))
     stage_descs, sample_count, fs, time_offset, iq = _plan_stages(
         parameters, pipeline, filters)
 
@@ -211,10 +265,12 @@ def build_plan(parameters: Parameters, pipeline: PipelineSpec,
                 hadamard(readi), np.float32).T if readi > 1 else None),
             coherency_weighting=bool(parameters.coherency_weighting),
         )
-        das_static = dataclasses.replace(das_ops.make_static(dp, iq=iq),
-                                         frame_batch=int(frame_batch))
+        das_static = dataclasses.replace(
+            das_ops.make_static(dp, iq=iq, voxel_block=voxel_block),
+            backend=backend, frame_batch=int(frame_batch))
         das_dyn = das_ops.make_dynamic(dp, dev)
-        if dev.type == "cuda" and das_static.family != "none":
+        if dev.type == "cuda" and backend != "torch" \
+                and das_static.family != "none":
             # the kernel's scalar vector, tables and launch knobs depend
             # only on the plan
             das_dyn["launch"] = launch_tables(das_static, das_dyn)
@@ -253,7 +309,11 @@ def build_plan(parameters: Parameters, pipeline: PipelineSpec,
     dyn["sampling_frequency"] = fs_t
     dyn["demodulation_frequency"] = fd_t
 
-    return CompiledPlan(descriptor=desc, dyn=dyn)
+    return CompiledPlan(descriptor=desc, dyn=dyn,
+                        output_points=output_points, iq=iq,
+                        time_offset=time_offset,
+                        das_sample_count=sample_count,
+                        das_sampling_frequency=fs)
 
 
 def _stage_parameter(pipeline: PipelineSpec, kind: ShaderKind, index,
@@ -282,14 +342,18 @@ def _wire_samples(desc: PlanDescriptor, rf: torch.Tensor) -> torch.Tensor:
 
 
 def stage_steps(desc: PlanDescriptor, rf: torch.Tensor, dyn: dict,
-                skip_coherency_normalize: bool = False):
+                skip_coherency_normalize: bool = False,
+                stage_key_offset: int = 0):
     """The stages of ``desc`` on ``rf`` one at a time: a generator that
     yields once after each stage what the frame is then (a batch as
     (B, ...)), and after the DAS stage the volume, or the ``(coherent,
     incoherent)`` pair with coherency weighting when
     ``skip_coherency_normalize`` defers the weighting to the caller (the
     sharded plans of ``parallel/sharding.py`` weight once, after the sum
-    over channel shards).  The value yielded last is the plan's result."""
+    over channel shards).  The value yielded last is the plan's result.
+    Stage ``i`` reads its entries of ``dyn`` (``hadamard``, ``taps``,
+    ``phasor``) under ``i + stage_key_offset``: a descriptor of some of a
+    plan's stages (:func:`compiled_stage_fns`) reads the whole plan's."""
     x = _wire_samples(desc, rf)
     batch = desc.frame_batch
     if batch > 1:
@@ -298,7 +362,7 @@ def stage_steps(desc: PlanDescriptor, rf: torch.Tensor, dyn: dict,
         # row, so a batch runs through the pre-DAS kernels as B * C
         # channels of one frame: no batched kernel is needed before DAS.
         x = x.reshape((batch * x.shape[1],) + tuple(x.shape[2:]))
-    for i, sd in enumerate(desc.stages):
+    for i, sd in enumerate(desc.stages, start=stage_key_offset):
         if sd.kind == ShaderKind.Decode:
             x = decode_hadamard(x, dyn[f"hadamard{i}"])
         elif sd.kind == ShaderKind.Demodulate:
@@ -322,16 +386,45 @@ def stage_steps(desc: PlanDescriptor, rf: torch.Tensor, dyn: dict,
 
 
 def compose_stages(desc: PlanDescriptor, rf: torch.Tensor, dyn: dict,
-                   mark=None):
+                   mark=None, skip_coherency_normalize: bool = False,
+                   stage_key_offset: int = 0):
     """Run the stages of ``desc`` on ``rf`` (canonical (C, A, S_wire) raw
     data on the plan's device, or (B, C, A, S_wire) for a batch of
     ``desc.frame_batch = B > 1``).  ``mark``, when given, is called after
     each stage (the executor's per-stage clock).  Returns the (nx, ny, nz)
     frame (or (B, nx, ny, nz) frames), with coherency weighting already
-    applied as part of the DAS stage, or the last stage's output for a
-    pipeline without DAS."""
+    applied as part of the DAS stage unless ``skip_coherency_normalize``
+    (then the ``(coherent, incoherent)`` pair), or the last stage's output
+    for a pipeline without DAS.  ``stage_key_offset``: as in
+    :func:`stage_steps`."""
     out = None
-    for out in stage_steps(desc, rf, dyn):
+    for out in stage_steps(desc, rf, dyn, skip_coherency_normalize,
+                           stage_key_offset):
         if mark is not None:
             mark()
     return out if desc.stages else _wire_samples(desc, rf)
+
+
+@functools.lru_cache(maxsize=32)
+def compiled_stage_fns(desc: PlanDescriptor) -> tuple:
+    """One callable ``fn(x, dyn)`` per stage of ``desc``, as the JAX
+    package's profile mode runs its stages: stage ``i`` takes what stage
+    ``i - 1`` returned (the first the canonical raw frame) and the whole
+    plan's ``dyn``, and the DAS stage returns the frame, coherency-weighted
+    where the plan weights.  Chained, they compute :func:`compose_stages`
+    operation for operation.  Kept per descriptor, up to 32 of them, until
+    :func:`clear_plan_cache`."""
+    def stage(i: int):
+        # the raw frame's wire pairing belongs to the first stage only
+        sub = dataclasses.replace(
+            desc, stages=desc.stages[i:i + 1],
+            data_kind=desc.data_kind if i == 0 else DataKind.Float32)
+        return lambda x, dyn: compose_stages(sub, x, dyn,
+                                             stage_key_offset=i)
+    return tuple(stage(i) for i in range(len(desc.stages)))
+
+
+def clear_plan_cache() -> None:
+    """Drop what the planner keeps per descriptor (the JAX package's
+    compiled-plan cache): :func:`compiled_stage_fns`' stage callables."""
+    compiled_stage_fns.cache_clear()

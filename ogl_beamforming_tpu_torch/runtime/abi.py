@@ -33,6 +33,9 @@ from ..params.constants import (FILTER_SLOTS, MAX_CHANNEL_COUNT,
 NATIVE_DIR = Path(__file__).resolve().parent / "native"
 BUILD_DIR = NATIVE_DIR.parent.parent / "_build" / "native"
 LIB_NAME = "libogl_beamformer_tpu"
+SO_PATH = BUILD_DIR / f"{LIB_NAME}.so"
+"""The library a client links: a link to the newest build
+(:func:`build_native`), whose own name holds its sources' hash."""
 
 # native/Makefile's CFLAGS and LDFLAGS
 CFLAGS = ["-O2", "-g", "-Wall", "-Wextra", "-Wno-unused-parameter", "-fPIC",
@@ -232,11 +235,12 @@ def library_path() -> Path:
     return BUILD_DIR / f"{LIB_NAME}_{h.hexdigest()[:16]}.so"
 
 
-def build_native() -> Path:
-    """Compile the library if its sources' build is missing; return its
-    path.  ``libogl_beamformer_tpu.so`` beside it is pointed at it."""
+def build_native(force: bool = False) -> Path:
+    """Compile the library if its sources' build is missing, or with
+    ``force`` in any case; return its path.  :data:`SO_PATH` beside it is
+    pointed at it."""
     out = library_path()
-    if not out.exists():
+    if force or not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [find_cc(), *CFLAGS, str(NATIVE_DIR / "beamformer_lib.c"),
@@ -248,7 +252,7 @@ def build_native() -> Path:
                                f"{proc.returncode}):\n{' '.join(cmd)}\n"
                                f"{proc.stdout}{proc.stderr}")
         os.replace(tmp, out)         # atomic: concurrent builds agree
-    link = BUILD_DIR / f"{LIB_NAME}.so"
+    link = BUILD_DIR / f"{LIB_NAME}.so"       # SO_PATH
     if not link.is_symlink() or os.readlink(link) != out.name:
         tmp_link = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}.link"
         tmp_link.unlink(missing_ok=True)

@@ -12,7 +12,10 @@ cache, so the next launch builds and loads the library of the new sources
 marked dirty and drops its plans, so the next frame plans against the new
 code; state (parameter blocks, backlog, stats) survives, exactly like the
 reference's reload keeping memory in the platform layer.  The port runs
-eagerly and keeps no jit or plan cache to clear (``pipeline/plan.py``).
+eagerly and compiles no plan; the per-descriptor stage callables of
+``pipeline.plan.compiled_stage_fns`` are dropped with
+``pipeline.plan.clear_plan_cache``, where the JAX package clears its plan
+caches.
 """
 
 from __future__ import annotations
@@ -36,10 +39,14 @@ _WATCHED_MODULES = [
 
 
 def invalidate_compiled(beamformers=(), kernels: bool = False):
-    """Dirty every executor block and drop its plans and its device copy of
-    the channel mapping (the reload's ``dirty_programs`` sweep,
-    beamformer_core.c:1818-1845); with ``kernels``, also forget the loaded
-    CUDA library so that the next launch builds the current sources."""
+    """Clear the plan cache, and dirty every executor block and drop its
+    plans and its device copy of the channel mapping (the reload's
+    ``dirty_programs`` sweep, beamformer_core.c:1818-1845); with
+    ``kernels``, also forget the loaded CUDA library so that the next
+    launch builds the current sources."""
+    # imported here: reload_ops may have replaced the module
+    from ..pipeline import plan as plan_mod
+    plan_mod.clear_plan_cache()
     if kernels:
         build.library.cache_clear()
     for bf in beamformers:

@@ -172,10 +172,15 @@ def shm_free_bytes() -> int | None:
 
 
 class BeamformerServer:
-    """Owns the shm region and a worker thread servicing client requests."""
+    """Owns the shm region and a worker thread servicing client requests.
+    ``pipelined`` (the default) takes each block's frames through a
+    ``StreamingSession``; ``pipelined=False`` computes each frame in the
+    worker with ``Beamformer.push_data_with_compute`` before it takes the
+    next request, as the JAX package's server does."""
 
     def __init__(self, beamformer: Beamformer | None = None,
-                 shm_size: int = 1 << 30, device="cuda"):
+                 shm_size: int = 1 << 30, pipelined: bool = True,
+                 device="cuda"):
         # the executor first: without a card it raises before a region
         # exists
         self.beamformer = beamformer or Beamformer(device=device)
@@ -194,7 +199,8 @@ class BeamformerServer:
         self._scratch_size = size.value
         self._thread: threading.Thread | None = None
         self._stop = threading.Event()
-        # ComputeIndirect work is routed through a per-block
+        self._pipelined = pipelined
+        # With pipelined, ComputeIndirect work is routed through a per-block
         # StreamingSession so the host copy, the upload and compute overlap
         # (the reference's upload+compute worker threads + 3-slot RF ring,
         # beamformer.c:292-305, beamformer_core.c:1728-1777).
@@ -359,7 +365,11 @@ class BeamformerServer:
             release = self.lib.bf_server_release_upload
             try:
                 raw = self._take_rf(block, rf_bytes)
-                if not self._live_stop_requested():
+                if not self._pipelined:
+                    self.beamformer.push_data_with_compute(
+                        raw, image_plane_tag=int(work.view_plane),
+                        block=block)
+                elif not self._live_stop_requested():
                     session = self._session(block)
                     session.stop_requested = False   # restart after stop
                     session.submit(raw, image_plane_tag=int(work.view_plane),

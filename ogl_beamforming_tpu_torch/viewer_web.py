@@ -9,7 +9,7 @@ render_3d.frag.glsl:61-70 via ops/display.py.
 
 Usage::
 
-    from ogl_beamforming_tpu.viewer_web import LiveView
+    from ogl_beamforming_tpu_torch.viewer_web import LiveView
     view = LiveView(beamformer).start()       # http://localhost:8765
     ...
     view.stop()
@@ -82,7 +82,7 @@ def _crop_resample(img: np.ndarray, region, out: int) -> np.ndarray:
 
 
 _PAGE = """<!doctype html>
-<html><head><title>ogl_beamforming_tpu</title>
+<html><head><title>ogl_beamforming_tpu_torch</title>
 <style>
  body { background:#111; color:#ddd; font-family:monospace; margin:1em; }
  .row { display:flex; gap:2em; align-items:flex-start; }
@@ -91,7 +91,7 @@ _PAGE = """<!doctype html>
  label { display:block; margin-top:.5em; }
  table { border-collapse:collapse; } td { padding:2px 8px; }
 </style></head><body>
-<h3>ogl_beamforming_tpu &mdash; live view (<a href="/xplane" style="color:#6af">3D x-plane</a> | <a href="/panels" style="color:#6af">panels</a>)</h3>
+<h3>ogl_beamforming_tpu_torch &mdash; live view (<a href="/xplane" style="color:#6af">3D x-plane</a> | <a href="/panels" style="color:#6af">panels</a>)</h3>
 <div class="row">
  <div>
   <div id="wrap" style="position:relative; display:inline-block;">
@@ -260,7 +260,7 @@ document.getElementById('stop').onclick = () =>
 
 
 _XPLANE_PAGE = """<!doctype html>
-<html><head><title>ogl_beamforming_tpu x-plane</title>
+<html><head><title>ogl_beamforming_tpu_torch x-plane</title>
 <style>
  body { background:#111; color:#ddd; font-family:monospace; margin:1em; }
  .row { display:flex; gap:1.5em; align-items:flex-start; flex-wrap:wrap; }
@@ -364,7 +364,7 @@ setInterval(refresh3d, 1000); refresh3d(); loadParams();
 
 
 _PANELS_PAGE = """<!doctype html>
-<html><head><title>ogl_beamforming_tpu panels</title>
+<html><head><title>ogl_beamforming_tpu_torch panels</title>
 <style>
  body { background:#111; color:#ddd; font-family:monospace; margin:0;
         height:100vh; display:flex; flex-direction:column; }

@@ -1705,3 +1705,156 @@ def test_beamformer_mesh_across_cards_times_every_card(cards, monkeypatch):
     row = (bf.stats._frame_index - 1) % STATS_FRAME_WINDOW
     decode_ms = bf.compute_timings().times[row, 0] * 1e3
     assert decode_ms >= 0.5 * sleep_ms > 0
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's API on the card (smoke phase 13 at a small size)
+# ---------------------------------------------------------------------------
+
+def _frames_of(plan, x):
+    """The plan's frame and its stages' callables chained on ``x``."""
+    from ogl_beamforming_tpu_torch.pipeline.plan import compiled_stage_fns
+    chained = x
+    for fn in compiled_stage_fns(plan.descriptor):
+        chained = fn(chained, plan.dyn)
+    return plan(x), chained
+
+
+def test_compiled_stage_fns_and_backends_on_the_card(dev):
+    """The reduced Quickstart: ``compiled_stage_fns`` chained, the plan,
+    ``Beamformer.push_data_with_compute`` and a ``das_backend="cuda"``
+    plan all bit-equal, each through K2 and K1."""
+    from ogl_beamforming_tpu_torch.pipeline.plan import build_plan
+    p, pipe, _, rf = _mesh_case("forces", False)
+    x = torch.from_numpy(rf).to(dev)
+    auto = build_plan(p, pipe, {}, device=dev)
+    cuda = build_plan(p, pipe, {}, das_backend="cuda", device=dev)
+    bf = Beamformer(device=dev)
+    bf.push_parameters(p)
+    bf.push_pipeline(pipe.shaders, pipe.data_kind)
+    before = {k: build.LAUNCHES[k] for k in ("decode_hadamard",
+                                             "das_forces")}
+    frame, chained = _frames_of(auto, x)
+    pushed = bf.push_data_with_compute(rf.reshape(rf.shape[0], -1)).data
+    assert {k: build.LAUNCHES[k] - n for k, n in before.items()} == \
+        {"decode_hadamard": 3, "das_forces": 3}
+    assert float(frame.abs().max()) > 0
+    assert torch.equal(chained, frame) and torch.equal(pushed, frame)
+    assert torch.equal(cuda(x), frame)
+
+
+@pytest.mark.parametrize("family", ["forces", "hercules", "rca"])
+def test_plain_das_backend_on_the_card(dev, family):
+    """``das_backend="xla"`` runs the plain twin on the card, in blocks of
+    ``voxel_block`` voxels, launching no K1: within the twin bound of
+    K1's frame."""
+    from ogl_beamforming_tpu_torch.pipeline.plan import build_plan
+    p, pipe, fv, rf = _mesh_case(family, False, a=1)
+    x = torch.from_numpy(rf).to(dev)
+    ref = build_plan(p, pipe, {}, device=dev, focal_vectors=fv)(x)
+    plain = build_plan(p, pipe, {}, device=dev, focal_vectors=fv,
+                       das_backend="xla", voxel_block=128)
+    st = next(sd.das for sd in plain.descriptor.stages if sd.das)
+    assert st.backend == "torch" and st.voxel_block == 128
+    name = das_cuda.launch_name(st)
+    before = build.LAUNCHES[name]
+    out = plain(x)
+    assert build.LAUNCHES[name] == before
+    assert out.is_cuda and float(ref.abs().max()) > 0
+    assert nrmse(ref.cpu().numpy(), out.cpu().numpy()) <= 1e-4
+
+
+def test_beamformer_profile_options_on_the_card(dev):
+    p, pipe, _, rf = _mesh_case("forces", True)
+    raw = rf.reshape(rf.shape[0], -1)
+    frames = []
+    for kw in ({}, dict(voxel_block=4096, profile=True,
+                        stage_timing="device")):
+        bf = Beamformer(device=dev, **kw)
+        bf.push_parameters(p)
+        bf.push_pipeline(pipe.shaders, pipe.data_kind)
+        frames.append(bf.push_data_with_compute(raw).data)
+        assert (bf.compute_timings().times[0][:2] > 0).all()
+    assert torch.equal(*frames)
+
+
+def test_shard_rf_tx_frame_on_the_card(dev):
+    """The 8-angle TPW frame placed by ``shard_rf_tx`` on 2 x 4 positions
+    of the card: within 1e-6 of the unsharded frame, each position
+    launching K1 once on its (channel, transmit) block."""
+    from ogl_beamforming_tpu_torch.parallel import sharding
+    from ogl_beamforming_tpu_torch.pipeline.plan import build_plan
+    p, pipe, fv, rf = _mesh_case("rca", False, a=8)
+    plan = build_plan(p, pipe, {}, device=dev, focal_vectors=fv)
+    x = torch.from_numpy(rf).to(dev)
+    ref = plan(x)
+    mesh = sharding.make_mesh_tx(2, 4, [dev] * 8)
+    placed = sharding.shard_rf_tx(x, mesh)
+    assert {tuple(b.shape) for b in placed.blocks.values()} == {
+        (rf.shape[0] // 2, 2, rf.shape[2])}
+    before = build.LAUNCHES["das_rca"]
+    out = sharding.shard_plan_tx(plan, mesh)(placed)
+    assert build.LAUNCHES["das_rca"] - before == 8
+    assert nrmse(ref.cpu().numpy(), out.cpu().numpy()) <= 1e-6
+
+
+# A plan, a Beamformer and the launchers on a card that is not the current
+# one (roadmap C3; skipped on a one-card machine): every launcher makes its
+# tensor's card current for the launch.
+
+@pytest.mark.parametrize("family", ["forces", "hercules", "rca"])
+def test_plan_on_another_card_than_the_current_one(cards, family):
+    from ogl_beamforming_tpu_torch.pipeline.plan import build_plan
+    p, pipe, fv, rf = _mesh_case(family, True, a=1)
+    first, other = cards[0], cards[1]
+    with torch.cuda.device(first):
+        ref = build_plan(p, pipe, {}, device=first, focal_vectors=fv)(
+            torch.from_numpy(rf).to(first))
+        out = build_plan(p, pipe, {}, device=other, focal_vectors=fv)(
+            torch.from_numpy(rf).to(other))
+        assert torch.cuda.current_device() == first.index
+    torch.cuda.synchronize(first)
+    torch.cuda.synchronize(other)
+    assert out.device == other and float(ref.abs().max()) > 0
+    assert torch.equal(out.cpu(), ref.cpu())
+
+
+def test_beamformer_on_another_card_than_the_current_one(cards):
+    p, pipe, _, rf = _mesh_case("forces", True)
+    raw = rf.reshape(rf.shape[0], -1)
+    frames = []
+    with torch.cuda.device(cards[0]):
+        for card in cards[:2]:
+            bf = Beamformer(device=card)
+            bf.push_parameters(p)
+            bf.push_pipeline(pipe.shaders, pipe.data_kind)
+            frames.append(bf.push_data_with_compute(raw).data)
+            assert torch.cuda.current_device() == cards[0].index
+    for card in cards[:2]:
+        torch.cuda.synchronize(card)
+    assert frames[1].device == cards[1]
+    assert torch.equal(frames[0].cpu(), frames[1].cpu())
+
+
+def test_launchers_on_another_card_than_the_current_one(cards):
+    """``decode_hadamard_cuda``, ``fir_filter`` and ``demodulate`` on
+    cuda:1 while cuda:0 is current: bit-equal to the same launches on
+    cuda:0."""
+    rng = np.random.default_rng(0x0621)
+    rf = rng.integers(-1024, 1024, (8, 16, 512)).astype(np.int16)
+    taps = np.hanning(16).astype(np.float32)
+    outs = []
+    with torch.cuda.device(cards[0]):
+        for card in cards[:2]:
+            x = torch.from_numpy(rf).to(card)
+            h = decode.hadamard_matrix(16, device=card)
+            t = torch.from_numpy(taps).to(card)
+            dec = decode.decode_hadamard_cuda(x, h)
+            outs.append([dec, filtering.fir_filter(dec, t, 2),
+                         filtering.demodulate(x, t, 5e6, 20e6, 1)])
+            assert torch.cuda.current_device() == cards[0].index
+    for card in cards[:2]:
+        torch.cuda.synchronize(card)
+    for a, b in zip(*outs):
+        assert b.device == cards[1]
+        assert torch.equal(a.cpu(), b.cpu())

@@ -2,7 +2,8 @@
 API) on the CPU, for every DAS family, real and IQ, against the JAX
 package's ``das_from_params`` (XLA, NRMSE <= 1e-4) and golden (<= 1e-3) on
 a small grid: a numpy ``rf`` goes to the device asked for, a tensor stays
-where it is, and the GPU is the default.
+where it is, and the GPU is the default.  The twin in blocks of
+``voxel_block`` voxels is its one block bit for bit.
 """
 
 import numpy as np
@@ -105,8 +106,8 @@ def test_das_from_params_keeps_a_tensor_where_it_is():
     p = _params("forces")
     rf = _rf(p, False)
     out = das.das_from_params(torch.from_numpy(rf), p)   # no device: stays
-    np.testing.assert_array_equal(out.numpy(),
-                                  das.das_from_params(rf, p, "cpu").numpy())
+    np.testing.assert_array_equal(
+        out.numpy(), das.das_from_params(rf, p, device="cpu").numpy())
 
 
 def test_das_from_params_defaults_to_the_gpu():
@@ -115,3 +116,20 @@ def test_das_from_params_defaults_to_the_gpu():
     p = _params("forces")
     with pytest.raises(RuntimeError, match="cuda"):
         das.das_from_params(_rf(p, False), p)
+
+
+@pytest.mark.parametrize("iq", [False, True], ids=["real", "iq"])
+@pytest.mark.parametrize("family", ["forces", "hercules", "flash"])
+def test_voxel_blocks_are_one_block_bit_for_bit(family, iq):
+    """The twin in blocks of 128 voxels (of a grid of 192 or 210) is its
+    one block of the whole grid bit for bit, and within the DAS bound of
+    the JAX package's ``das_from_params(..., voxel_block=128)``."""
+    p = _params(family)
+    rf = _rf(p, iq)
+    out = das.das_from_params(rf, p, voxel_block=128, device="cpu")
+    whole = das.das_from_params(rf, p, voxel_block=1 << 20, device="cpu")
+    assert int(np.prod(p.output_points)) > 128
+    np.testing.assert_array_equal(out.numpy(), whole.numpy())
+    ref = np.asarray(jax_das.das_from_params(rf, p, voxel_block=128))
+    assert np.abs(ref).max() > 0
+    assert nrmse(ref, out.numpy()) <= 1e-4

@@ -503,6 +503,21 @@ def test_library_named_by_its_sources(tmp_path, monkeypatch):
         [first.name, second.name, link.name])
 
 
+def test_build_native_force_rebuilds(tmp_path, monkeypatch):
+    """``build_native(force=True)`` compiles again where a build of the
+    sources exists (a new file at the same path), and ``SO_PATH`` is the
+    link beside the builds."""
+    monkeypatch.setattr(abi, "BUILD_DIR", tmp_path / "build")
+    first = abi.build_native()
+    inode = first.stat().st_ino
+    assert abi.build_native().stat().st_ino == inode     # built once
+    assert abi.build_native(force=True) == first
+    assert first.stat().st_ino != inode
+    assert abi.SO_PATH.name == "libogl_beamformer_tpu.so"
+    assert abi.SO_PATH.parent == Path(abi.NATIVE_DIR).parent.parent / \
+        "_build" / "native"
+
+
 def test_library_builds_into_the_ports_tree():
     path = abi.build_native()
     pkg = Path(abi.__file__).resolve().parent.parent
@@ -587,6 +602,37 @@ def test_served_frames_equal_push_data_with_compute(server, rng, kind):
     for raw, got in zip(raws, out):
         want = ref.push_data_with_compute(raw).to_reference_layout()
         assert np.array_equal(want, got)
+
+
+def test_unpipelined_server_computes_each_frame(server, rng):
+    """With ``pipelined=False`` each pushed frame is computed in the
+    server's worker by ``push_data_with_compute``, without a session: the
+    frame read back equals the executor's of the same raw frame, bit for
+    bit."""
+    lib = server.lib
+    assert lib.beamformer_push_simple_parameters(
+        ct.byref(_fill_simple())) == 1
+    server._drain_sessions()
+    sessions = dict(server._sessions)
+    server._pipelined = False
+    try:
+        raw = _wire(DataKind.Int16, rng)[0]
+        first = server.beamformer._frame_id
+        assert _push(lib, raw) == 1
+        out = np.zeros(12 * 16, np.float32)
+        assert lib.beamformer_get_last_frames(
+            out.ctypes.data_as(ct.c_void_p), out.nbytes, 1) == 1
+        assert server.beamformer._frame_id == first + 1
+        assert server._sessions == sessions
+    finally:
+        server._pipelined = True
+    ref = Beamformer(device="cpu")
+    b = server.beamformer._blocks[0]
+    ref.push_parameters(b.parameters)
+    ref.push_pipeline([s.kind for s in b.pipeline.stages],
+                      b.pipeline.data_kind)
+    assert np.array_equal(
+        ref.push_data_with_compute(raw).to_reference_layout(), out)
 
 
 # ---------------------------------------------------------------------------

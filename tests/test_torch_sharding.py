@@ -5,7 +5,8 @@ the JAX package's own sharded plan on its 8 virtual CPU devices, from the
 same numpy inputs made from a seed (NRMSE 1e-4, the bound
 ``tests/test_torch_pipeline.py`` holds the port to against JAX).
 
-Every function of ``tests/test_sharding.py`` has a case here; also the
+Every function of ``tests/test_sharding.py`` has a case here; also frames
+placed by ``shard_rf_2d`` and ``shard_rf_tx`` against JAX's, the
 refusals (a batched plan, ``push_batch`` with a mesh), a streaming session
 on a meshed Beamformer, the tuning key of a channel shard against JAX's,
 and each position's DAS launch scalars carrying its own offsets.
@@ -228,6 +229,68 @@ def test_sharded_tx_mesh_matches_single(rng):
         assert sh.descriptor.acquisition_count == 2
         np.testing.assert_array_equal(
             sh.dyn["das"]["focal_vectors"].numpy(), fv[2 * t:2 * t + 2])
+
+
+def test_shard_rf_2d_frame_matches_jax(rng):
+    """A frame placed by ``shard_rf_2d`` (each position its channel block,
+    on every slab) gives the whole frame's volume bit for bit and the JAX
+    package's ``shard_plan_2d`` frame of its ``shard_rf_2d`` within 1e-4."""
+    p = _params(c=16, nx=16, nz=32)
+    jp, pp = _plans(p, DECODE_DAS, DataKind.Int16)
+    rf = rng.integers(-1024, 1024, (16, 4, 256)).astype(np.int16)
+    jmesh = jax_sharding.make_mesh_2d(4, 2)
+    jout = jax_sharding.shard_plan_2d(jp, jmesh)(
+        jax_sharding.shard_rf_2d(rf, jmesh))
+    mesh = sharding.make_mesh_2d(4, 2, CPU8)
+    splan = sharding.shard_plan_2d(pp, mesh)
+    placed = sharding.shard_rf_2d(rf, mesh)
+    for (c, s), block in placed.blocks.items():
+        np.testing.assert_array_equal(block.numpy(), rf[4 * c:4 * c + 4])
+    out = splan(placed).numpy()
+    np.testing.assert_array_equal(out, splan(rf).numpy())
+    assert nrmse(np.asarray(jout), out) <= 1e-4
+
+
+def test_shard_rf_tx_frame_matches_jax(rng):
+    """``shard_rf_tx`` places only each position's (channel block,
+    transmit block); a ``shard_plan_tx`` plan takes it as it is, giving the
+    whole frame's volume bit for bit and the JAX package's frame of its
+    ``shard_rf_tx`` within 1e-4.  A plan sharded otherwise refuses it, as
+    it refuses a frame placed on another mesh."""
+    p, fv = _tpw()
+    jp, pp = _plans(p, [ShaderKind.DAS], DataKind.Float32, focal_vectors=fv)
+    rf = rng.standard_normal((16, 8, 256)).astype(np.float32)
+    jmesh = jax_sharding.make_mesh_tx(2, 4)
+    jout = jax_sharding.shard_plan_tx(jp, jmesh).fn(
+        jax_sharding.shard_rf_tx(rf, jmesh), jp.dyn)
+    mesh = sharding.make_mesh_tx(2, 4, CPU8)
+    splan = sharding.shard_plan_tx(pp, mesh)
+    placed = sharding.shard_rf_tx(rf, mesh)
+    assert placed.transmit_axis == sharding.TRANSMIT_AXIS
+    for (c, t), block in placed.blocks.items():
+        np.testing.assert_array_equal(
+            block.numpy(), rf[8 * c:8 * c + 8, 2 * t:2 * t + 2])
+    out = splan(placed).numpy()
+    np.testing.assert_array_equal(out, splan(rf).numpy())
+    assert nrmse(np.asarray(jout), out) <= 1e-4
+    other = sharding.shard_plan(pp, mesh)          # channels only
+    with pytest.raises(ValueError, match="another mesh"):
+        other(placed)
+    with pytest.raises(ValueError, match="not divisible"):
+        sharding.shard_rf_tx(rf[:, :6], sharding.make_mesh_tx(2, 4, CPU8))
+
+
+def test_rf_sharding_describes_each_positions_rows():
+    mesh = sharding.make_mesh_2d(4, 2, CPU8)
+    spec = sharding.rf_sharding(mesh)
+    assert (spec.mesh, spec.channel_axis, spec.transmit_axis) == (
+        mesh, sharding.CHANNEL_AXIS, None)
+    assert spec.block((2, 1), (16, 4, 256)) == (slice(8, 12), slice(None))
+    tx = sharding.RFSharding(sharding.make_mesh_tx(2, 4, CPU8),
+                             transmit_axis=sharding.TRANSMIT_AXIS)
+    assert tx.block((1, 3), (16, 8, 256)) == (slice(8, 16), slice(6, 8))
+    with pytest.raises(ValueError, match="not divisible"):
+        spec.block((0, 0), (15, 4, 256))
 
 
 def test_sharded_tx_rejects_decode():

@@ -1,7 +1,8 @@
 """The port's viewers (ogl_beamforming_tpu_torch.viewer, viewer_xplane)
 against the JAX package's, mirroring tests/test_viewer.py and the X-plane
 cases of tests/test_viewer_web.py: the copies equal to their originals up
-to the named import lines; ``frame_to_bmode``, ``bmode_image`` and
+to the named import lines (and the web viewer's lines that name its
+package); ``frame_to_bmode``, ``bmode_image`` and
 ``a_scan`` of a port frame (a torch tensor) equal to the JAX viewer's of
 the same data to 1e-6; ``save_bmode_png`` (matplotlib); the X-plane
 renderers, slicers and the plane grab and drag equal to the JAX package's.
@@ -23,12 +24,24 @@ from ogl_beamforming_tpu.pipeline.executor import Frame as JaxFrame  # noqa: E40
 from ogl_beamforming_tpu_torch import viewer, viewer_web, viewer_xplane  # noqa: E402
 from ogl_beamforming_tpu_torch.pipeline.executor import Frame  # noqa: E402
 
+# the lines of the web viewer that name its package: the usage line and the
+# pages' titles
+NAMING = ["    from {}.viewer_web import LiveView",
+          "<html><head><title>{}</title>",
+          '<h3>{} &mdash; live view (<a href="/xplane" style="color:#6af">'
+          '3D x-plane</a> | <a href="/panels" style="color:#6af">panels</a>)'
+          '</h3>',
+          "<html><head><title>{} x-plane</title>",
+          "<html><head><title>{} panels</title>"]
+
 # the only lines in which a port viewer differs from its original
 CHANGED = {
     viewer: ["from .utils.transfer import to_host",
              "from .utils.device import to_host"],
     viewer_web: ["        from .utils.transfer import to_host",
-                 "        from .utils.device import to_host"],
+                 "        from .utils.device import to_host"]
+    + [line.format(pkg) for line in NAMING
+       for pkg in ("ogl_beamforming_tpu", "ogl_beamforming_tpu_torch")],
     viewer_xplane: [],
 }
 ORIGINAL = {viewer: jax_viewer, viewer_web: jax_viewer_web,
